@@ -1,0 +1,129 @@
+"""Trace replay — the hit-ratio study engine (paper §5.2), in torch.
+
+Counterpart of ``repro/core/simulate.py``.  ``replay`` is the exact
+sequential replay (batch size 1); ``replay_batched`` replays B requests per
+step with the deterministic conflict resolution of ``kway.access``, flat,
+``resident=True`` (``CacheBackend.replay``: kernel 3 on the ``cuda``
+backend, one launch for the whole trace) or with per-request ``ttls``.
+
+Not ported yet, and refused with the ROADMAP item that brings them:
+TinyLFU admission, ``shards > 1`` and ``hierarchy``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import kway, router
+from repro_torch.core.backend import (HIERARCHY_TODO, SHARDS_TODO,
+                                      TINYLFU_TODO, make_backend,
+                                      resolve_device)
+from repro_torch.core.kway import KWayConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    cache: KWayConfig
+    tinylfu: Optional[object] = None   # not ported yet: must stay None
+    backend: str = "cuda"
+    # True: replay through the unfused get-then-put composition
+    # (backend.access_two_phase), the oracle of the fused access.
+    two_phase: bool = False
+    device: Optional[str] = None       # None: the card
+
+    def __post_init__(self):
+        resolve_device(self.device)
+
+
+def _access_fn(sim: SimConfig, be):
+    return be.access_two_phase if sim.two_phase else be.access
+
+
+def _pad_ttl_chunks(ttls: np.ndarray, batch: int) -> np.ndarray:
+    """Chunk a per-request TTL array [n] -> int32 [steps, B] with the
+    ``router.pad_chunks`` geometry (padding lanes carry ttl 0 == never
+    expires; they are disabled anyway)."""
+    ttls = np.asarray(ttls, np.int32)
+    n = ttls.shape[0]
+    steps = -(-n // batch)
+    padded = np.zeros((steps * batch,), np.int32)
+    padded[:n] = ttls
+    return padded.reshape(steps, batch)
+
+
+def _replay_chunks(sim: SimConfig, chunks, enabled, tchunks=None) -> int:
+    """Chunked loop through the backend's (fused or two-phase) access ->
+    total hits."""
+    be = make_backend(sim.backend, sim.cache, sim.device)
+    tt = None if tchunks is None else torch.from_numpy(tchunks).to(be.device)
+    hits, _, _ = kway.replay_chunks(
+        _access_fn(sim, be), be.init(ttl=tchunks is not None),
+        be.keys(chunks), torch.as_tensor(enabled).to(be.device), tt)
+    return int(hits.sum())
+
+
+def replay(sim: SimConfig, trace: np.ndarray) -> float:
+    """Exact sequential replay (batch size 1) -> hit ratio.  Traceable
+    backends run it as a one-lane resident replay (kernel 3 on ``cuda``)."""
+    trace = np.asarray(trace, np.uint32)
+    if sim.tinylfu is not None:
+        raise ValueError(TINYLFU_TODO)
+    chunks, enabled = router.pad_chunks(trace, 1)
+    if sim.backend == "ref" or sim.two_phase:
+        return _replay_chunks(sim, chunks, enabled) / trace.shape[0]
+    be = make_backend(sim.backend, sim.cache, sim.device)
+    hits, _, _, _ = be.replay(be.init(), chunks, enabled)
+    return int(hits.sum()) / trace.shape[0]
+
+
+def replay_batched(sim: SimConfig, trace: np.ndarray, batch: int = 64,
+                   shards: int = 1, resident: bool = False, hierarchy=None,
+                   ttls=None) -> float:
+    """Batched replay -> hit ratio over the WHOLE trace (the tail chunk is
+    padded with disabled lanes).
+
+    ``resident=True`` replays through ``CacheBackend.replay``: on the
+    ``cuda`` backend kernel 3, the whole trace in one launch, bit-identical
+    to the chunked loop.  ``ttls`` (int32 [n], aligned with ``trace``) gives
+    each request a time-to-live on the logical clock: a missing request
+    inserts with deadline ``clock + 2B + ttl`` (``ttl <= 0``: never), and an
+    expired entry is never a hit.  TTL replays run through
+    ``CacheBackend.replay`` as in the reference.
+    """
+    trace = np.asarray(trace, np.uint32)
+    n = trace.shape[0]
+    if sim.tinylfu is not None:
+        raise ValueError(TINYLFU_TODO)
+    if shards > 1:
+        raise ValueError(SHARDS_TODO)
+    if hierarchy is not None:
+        raise ValueError(HIERARCHY_TODO)
+    if ttls is not None:
+        ttls = np.asarray(ttls, np.int32)
+        if ttls.shape[0] != n:
+            raise ValueError(
+                f"ttls length {ttls.shape[0]} != trace length {n}")
+        if sim.two_phase:
+            raise ValueError(
+                "per-request TTLs require the fused access path; "
+                "two_phase has no expiry semantics")
+    if resident:
+        if sim.backend == "ref":
+            raise ValueError(
+                "the ref backend is sequential host Python; the resident "
+                "replay needs 'torch' or 'cuda'")
+        if sim.two_phase:
+            raise ValueError(
+                "resident replay is the fused access path; two_phase is the "
+                "chunked oracle — replay with resident=False")
+    chunks, enabled = router.pad_chunks(trace, batch)
+    tchunks = None if ttls is None else _pad_ttl_chunks(ttls, batch)
+    if resident or (tchunks is not None and sim.backend != "ref"):
+        be = make_backend(sim.backend, sim.cache, sim.device)
+        hits, _, _, _ = be.replay(be.init(ttl=tchunks is not None), chunks,
+                                  enabled, ttls=tchunks)
+        return int(hits.sum()) / n
+    return _replay_chunks(sim, chunks, enabled, tchunks) / n

@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels of the port (sm_90a) and their plain versions.
+
+    kway_probe — kernels 1 and 2: batched set probe + victim order, and the
+                 fused probe of ``access`` (csrc/kway_probe.cu)
+    replay     — kernel 3: a whole chunked trace in one launch
+                 (csrc/replay.cu)
+    ops        — the wrappers the backends call
+    ref        — plain torch versions of kernels 1 and 2
+    _build     — nvcc build into kernels/.build/ and ctypes loading
+"""

@@ -1,0 +1,90 @@
+"""Plain torch versions of the probe kernels.
+
+Counterpart of ``repro/kernels/ref.py``: each function computes exactly
+what its CUDA kernel computes (``kernels/csrc/kway_probe.cu``), with plain
+tensor ops.  The CPU tests use them, the ``cuda`` backend runs them for
+CPU tensors, and ``chip_smoke.py`` holds the kernels to them on the card.
+
+Lanes are ``[S, ways]`` int32, unpadded: the reference padded ways to the
+TPU's 128-lane register width, which the port has no use for.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import hashing
+from repro_torch.core.hashing import EMPTY
+from repro_torch.core.kway import NEG_INF
+from repro_torch.core.policies import Policy, victim_scores
+
+_I32_LOW = -(2**31 - 1)
+
+
+def _row_probe(keys, fprint, sets, qkeys):
+    """Fingerprint pre-filter + full-key confirm on each query's set row.
+    -> (row_keys [B, k], occupied [B, k], hit [B], way [B]: first match or
+    0)."""
+    row_keys = keys[sets]
+    occupied = row_keys != EMPTY
+    eq = ((fprint[sets] == hashing.fingerprint(qkeys)[:, None])
+          & (row_keys == qkeys[:, None]) & occupied)
+    hit = eq.any(dim=-1)
+    way = torch.where(hit, eq.to(torch.int8).argmax(dim=-1),
+                      torch.zeros_like(sets))
+    return row_keys, occupied, hit, way
+
+
+def _order(policy, row_keys, occupied, row_a, row_b, now):
+    """Worst-victim-first order of each row (empty ways first, ties to the
+    lowest way), int64 [B, k]."""
+    sc = victim_scores(policy, row_a, row_b, now[:, None], row_keys)
+    sc = torch.where(occupied, sc, torch.full_like(sc, NEG_INF))
+    return torch.argsort(sc, dim=-1, stable=True)
+
+
+def kway_probe_ref(keys, fprint, meta_a, meta_b, sets, qkeys, times, *,
+                   policy, full_order=False, need_victims=True):
+    """Plain version of ``kway_probe.kway_probe``.
+
+    -> (hit, way) int32 [B] when ``need_victims`` is False; else also the
+    victim way and key (int32 [B]) scored at ``times``, and with
+    ``full_order`` the whole victim order int32 [B, ways].
+    """
+    sets = sets.to(torch.int64)
+    row_keys, occupied, hit, way = _row_probe(keys, fprint, sets, qkeys)
+    out = (hit.to(torch.int32), way.to(torch.int32))
+    if not need_victims:
+        return out
+    order = _order(policy, row_keys, occupied, meta_a[sets], meta_b[sets],
+                   times)
+    vway = order[:, :1]
+    out = out + (vway[:, 0].to(torch.int32),
+                 torch.gather(row_keys, 1, vway)[:, 0])
+    if full_order:
+        out = out + (order.to(torch.int32),)
+    return out
+
+
+def kway_fused_probe_ref(keys, fprint, meta_a, meta_b, sets, qkeys,
+                         times_get, times_put, en, *, policy):
+    """Plain version of ``kway_probe.kway_fused_probe`` -> (hit int32 [B]
+    raw, unmasked by ``en``; way int32 [B]; order int32 [B, ways]) with the
+    order scored on ``meta_a`` after the live hits' ``on_hit`` at
+    ``times_put``.  Batched, the sequential hit transitions are a
+    scatter-add (LFU/HYPERBOLIC) or scatter-max (LRU: batch times
+    increase)."""
+    sets = sets.to(torch.int64)
+    row_keys, occupied, hit, way = _row_probe(keys, fprint, sets, qkeys)
+    do = hit & (en != 0)
+    flat = sets * keys.shape[1] + way
+    ma1 = meta_a
+    if policy == Policy.LRU:
+        ma1 = meta_a.clone()
+        src = torch.where(do, times_get, torch.full_like(times_get, _I32_LOW))
+        ma1.view(-1).scatter_reduce_(0, flat, src, reduce="amax")
+    elif policy in (Policy.LFU, Policy.HYPERBOLIC):
+        ma1 = meta_a.clone()
+        ma1.view(-1).index_put_((flat,), do.to(torch.int32), accumulate=True)
+    order = _order(policy, row_keys, occupied, ma1[sets], meta_b[sets],
+                   times_put)
+    return hit.to(torch.int32), way.to(torch.int32), order.to(torch.int32)

@@ -1,0 +1,155 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+Every test here needs an NVIDIA GPU and the CUDA toolkit (the kernels are
+built with nvcc on first use); without a card each one skips.  Run them on
+the card with:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Every comparison is exact: the cache is integer state, and the scores are
+float32 computed the same way on both sides.  This file imports no JAX, so
+it runs where only torch is installed.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import kway, router, simulate, traces
+from repro_torch.core.backend import make_backend
+from repro_torch.core.kway import KWayConfig
+from repro_torch.core.policies import Policy
+from repro_torch.kernels import kway_probe as kp
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels import replay as krp
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.gpu
+
+ALL_POLICIES = list(Policy)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _warm_state(cfg, dev, n=3000, seed=5):
+    """A state filled by a replay prefix on the torch twin."""
+    be = make_backend("torch", cfg, dev)
+    tr = traces.generate("zipf", n, seed=seed, catalog=cfg.capacity * 4)
+    chunks, en = router.pad_chunks(tr, 64)
+    _, _, state, _ = be.replay(be.init(), chunks, en)
+    return state
+
+
+def _queries(cfg, state, b, seed):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, cfg.capacity * 4, b).astype(np.uint32)
+    keys[: b // 4] = keys[0]                          # duplicates
+    resident = state.keys.flatten()[: b // 4].cpu().numpy().view(np.uint32)
+    keys[b // 4: b // 4 + len(resident)] = resident
+    qk, sets = kway.route(cfg, torch.from_numpy(keys.view(np.int32))
+                          .to(state.device))
+    times = state.clock + torch.arange(b, dtype=torch.int32,
+                                       device=state.device)
+    return qk, sets.to(torch.int32), times
+
+
+def _eq(a, b, what):
+    assert torch.equal(a.cpu(), b.cpu()), what
+
+
+@pytest.mark.parametrize("policy", ALL_POLICIES)
+@pytest.mark.parametrize("ways", [4, 8, 32])
+@pytest.mark.parametrize("variant", ["hits", "victim", "order"])
+def test_kway_probe_kernel_matches_plain(cuda, policy, ways, variant):
+    cfg = KWayConfig(num_sets=64, ways=ways, policy=policy)
+    st = _warm_state(cfg, cuda)
+    qk, sets, times = _queries(cfg, st, 257, seed=ways)
+    kw = dict(policy=policy, full_order=variant == "order",
+              need_victims=variant != "hits")
+    args = (st.keys, st.fprint, st.meta_a, st.meta_b, sets, qk, times)
+    before = kp.LAUNCHES["kway_probe"]
+    got = kp.kway_probe(*args, **kw)
+    torch.cuda.synchronize()
+    assert kp.LAUNCHES["kway_probe"] == before + 1
+    want = kref.kway_probe_ref(*args, **kw)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _eq(g, w, f"{policy.name}/{variant}: output {i}")
+
+
+@pytest.mark.parametrize("policy", ALL_POLICIES)
+@pytest.mark.parametrize("ways", [1, 8, 32])
+def test_kway_fused_probe_kernel_matches_plain(cuda, policy, ways):
+    cfg = KWayConfig(num_sets=32, ways=ways, policy=policy)
+    st = _warm_state(cfg, cuda)
+    qk, sets, tg = _queries(cfg, st, 300, seed=ways + 7)
+    tp = tg + 300
+    en = torch.from_numpy(np.random.default_rng(1).random(300) < 0.8).to(cuda)
+    args = (st.keys, st.fprint, st.meta_a, st.meta_b, sets, qk, tg, tp, en)
+    got = kp.kway_fused_probe(*args, policy=policy)
+    want = kref.kway_fused_probe_ref(*args, policy=policy)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _eq(g, w, f"{policy.name}: output {i}")
+
+
+def _assert_states_equal(a, b, what):
+    for f in kway.STATE_LANES + ("clock", "expiry"):
+        x, y = getattr(a, f), getattr(b, f)
+        if x is None or y is None:
+            assert x is None and y is None, f"{what}: {f}"
+        else:
+            _eq(x, y, f"{what}: {f}")
+
+
+@pytest.mark.parametrize("policy", ALL_POLICIES)
+@pytest.mark.parametrize("ways,batch", [(1, 50), (4, 64), (8, 1), (8, 333),
+                                        (32, 96), (8, 4100)])
+def test_replay_kernel_matches_chunked_twin(cuda, policy, ways, batch):
+    """Batches above 1024 lanes make threads stride; above 3510 the chunk's
+    shared memory passes 48 KB and needs the opt-in attribute."""
+    cfg = KWayConfig(num_sets=32, ways=ways, policy=policy)
+    tr = traces.generate("zipf", max(4000, 6 * batch), seed=ways,
+                         catalog=cfg.capacity * 3)
+    chunks, en = router.pad_chunks(tr, batch)
+    cb = make_backend("cuda", cfg, cuda)
+    krp.reset_trace_counts()
+    h1, e1, s1, _ = cb.replay(cb.init(), chunks, en)
+    torch.cuda.synchronize()
+    assert krp.trace_counts() == {
+        ("launch", int(policy), 32, ways, chunks.shape[0], batch, False): 1}
+    tb = make_backend("torch", cfg, cuda)
+    h2, e2, s2, _ = tb.replay(tb.init(), chunks, en)
+    h3, e3, s3, _ = cb.replay_scan(cb.init(), chunks, en)
+    for h, e, s, what in ((h2, e2, s2, "torch twin"), (h3, e3, s3, "cuda scan")):
+        _eq(h1, h, f"{what}: per-chunk hits")
+        _eq(e1, e, f"{what}: per-chunk evictions")
+        _assert_states_equal(s1, s, what)
+    assert int(e1.sum()) > 0
+
+
+@pytest.mark.parametrize("policy", ALL_POLICIES)
+def test_replay_kernel_ttl_matches_chunked_twin(cuda, policy):
+    cfg = KWayConfig(num_sets=32, ways=4, policy=policy)
+    keys, ttls = traces.generate_ttl("ttl_churn", 3000, seed=2, catalog=512,
+                                     hot_ttl=900, churn_ttl=40)
+    chunks, en = router.pad_chunks(keys, 48)
+    tt = simulate._pad_ttl_chunks(ttls, 48)
+    cb = make_backend("cuda", cfg, cuda)
+    tb = make_backend("torch", cfg, cuda)
+    h1, e1, s1, _ = cb.replay(cb.init(ttl=True), chunks, en, ttls=tt)
+    h2, e2, s2, _ = tb.replay(tb.init(ttl=True), chunks, en, ttls=tt)
+    h3, e3, s3, _ = cb.replay_scan(cb.init(ttl=True), chunks, en, ttls=tt)
+    for h, e, s, what in ((h2, e2, s2, "torch twin"), (h3, e3, s3, "cuda scan")):
+        _eq(h1, h, f"{what}: per-chunk hits")
+        _eq(e1, e, f"{what}: per-chunk evictions")
+        _assert_states_equal(s1, s, what)
+
+
+def test_cuda_backend_runs_on_the_card_by_default(cuda):
+    be = make_backend("cuda", KWayConfig(num_sets=8, ways=4))
+    assert be.init().keys.device.type == "cuda"

@@ -1,0 +1,182 @@
+"""Refusals and boundaries of the PyTorch/CUDA port.
+
+  * entry points run on the card unless asked for the CPU: without a card
+    (the test hides any) they raise, naming the ``device="cpu"`` option;
+  * options whose modules are not ported yet raise ``ValueError`` naming
+    the ROADMAP item;
+  * neither ``src/repro_torch`` nor ``chip_smoke.py`` imports JAX or any
+    module of ``repro`` (checked in a subprocess and in the sources);
+  * ``chip_smoke.py`` fails, and prints no result, without a card.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import simulate
+from repro_torch.core.backend import make_backend
+from repro_torch.core.kway import KWayConfig
+
+torch.set_num_threads(1)
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+CFG = KWayConfig(num_sets=8, ways=4)
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda", "ref"])
+def test_default_device_is_the_card(no_card, backend):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_backend(backend, CFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_backend(backend, CFG, device="cuda")
+    assert make_backend(backend, CFG, device="cpu").init().keys.device.type \
+        == "cpu"
+
+
+def test_simconfig_default_device_is_the_card(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate.SimConfig(CFG)
+    assert simulate.SimConfig(CFG, device="cpu").backend == "cuda"
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(shards=2), "Queue A item 8"),
+    (dict(hierarchy=object()), "Queue B item 4"),
+])
+def test_unported_options_refused(kwargs, item):
+    sim = simulate.SimConfig(CFG, device="cpu")
+    with pytest.raises(ValueError, match=item):
+        simulate.replay_batched(sim, np.arange(10, dtype=np.uint32), **kwargs)
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_tinylfu_refused(backend):
+    sim = simulate.SimConfig(CFG, tinylfu=object(), backend=backend,
+                             device="cpu")
+    tr = np.arange(10, dtype=np.uint32)
+    for run in (simulate.replay, simulate.replay_batched):
+        with pytest.raises(ValueError, match="core/admission.py"):
+            run(sim, tr)
+    be = make_backend(backend, CFG, device="cpu")
+    with pytest.raises(ValueError, match="core/admission.py"):
+        be.replay(be.init(), tr.reshape(2, 5), np.ones((2, 5), bool),
+                  tinylfu=object())
+
+
+def test_replay_refusals():
+    sim = simulate.SimConfig(CFG, backend="ref", device="cpu")
+    tr = np.arange(10, dtype=np.uint32)
+    with pytest.raises(ValueError, match="ref"):
+        simulate.replay_batched(sim, tr, resident=True)
+    sim = simulate.SimConfig(CFG, backend="torch", two_phase=True,
+                             device="cpu")
+    with pytest.raises(ValueError, match="two_phase"):
+        simulate.replay_batched(sim, tr, ttls=np.ones(10, np.int32))
+    with pytest.raises(ValueError, match="length"):
+        simulate.replay_batched(simulate.SimConfig(CFG, device="cpu"), tr,
+                                ttls=np.ones(9, np.int32))
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "jaxlib", "repro")
+
+
+def test_port_imports_no_jax_and_no_repro():
+    """Import every port module (and chip_smoke) in a fresh interpreter and
+    check sys.modules."""
+    mods = []
+    for dirpath, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f),
+                                      os.path.dirname(PORT))
+                mods.append(rel[:-3].replace(os.sep, ".")
+                            .removesuffix(".__init__"))
+    code = (
+        "import importlib, sys\n"
+        f"for m in {sorted(mods)!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "print(len(sys.modules)); sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"), ROOT]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert len(mods) >= 14
+
+
+def test_port_sources_import_no_jax_and_no_repro():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PORT):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(_forbidden(n) for n in names), (path, names)
+
+
+class _StubLib:
+    """Stands in for a ctypes library: records what the wrappers declare."""
+
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        return self.fns.setdefault(name, type("Fn", (), {})())
+
+
+@pytest.mark.parametrize("module,source", [
+    ("kway_probe", "kway_probe.cu"), ("replay", "replay.cu")])
+def test_ctypes_declarations_match_c_entries(monkeypatch, module, source):
+    """Every C entry's parameter list (void* / int) equals the argtypes its
+    wrapper declares; a mismatch would only show on the card."""
+    import ctypes
+    import importlib
+    import re
+
+    from repro_torch.kernels import _build
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    stub = _StubLib()
+    monkeypatch.setattr(_build, "library", lambda name: stub)
+    mod._lib.cache_clear()
+    try:
+        mod._lib()
+    finally:
+        mod._lib.cache_clear()
+    with open(os.path.join(PORT, "kernels", "csrc", source)) as f:
+        src = f.read()
+    entries = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)
+    assert entries and {n for n, _ in entries} == set(stub.fns)
+    for name, params in entries:
+        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                 for p in params.split(",")]
+        assert stub.fns[name].argtypes == kinds, name
+        assert stub.fns[name].restype is ctypes.c_int
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; chip_smoke.py would run for real")
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
