@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 nvcc, then, at the full-size configuration of the slice (a 2^20-entry
-8-way cache, 4 Mi zipf requests, batches of 1024):
+8-way cache, 4 Mi zipf requests, batches of 1024; TinyLFU sized by
+``for_capacity(2^20)``; an L1 of 512 x 16 over that cache):
 
   1. prints the card, its power limit and ptxas' register/shared-memory
      report of every kernel;
@@ -13,24 +14,39 @@ nvcc, then, at the full-size configuration of the slice (a 2^20-entry
      variant — exactly;
   3. holds kernel 3 (``replay_resident``) to the chunked torch twin and to
      the ``cuda`` backend's chunked path (kernel 2 + torch apply): per-chunk
-     hits and evictions and the final state, exactly; LRU and HYPERBOLIC at
-     full size, and a TTL replay;
-  4. reproduces the 36 committed k-way ``jnp`` hit ratios of
-     ``benchmarks/baselines/quick.json`` through ``replay_batched(batch=1,
-     resident=True)`` on the ``cuda`` backend, exactly;
-  5. drives the main path through the user entry points
+     hits and evictions and the final state, exactly; LRU at full size,
+     HYPERBOLIC on the first 2^20 requests, and a TTL replay;
+  4. holds kernel 3's TinyLFU branch to the chunked torch twin (record ->
+     peek -> admit -> access) at full size, LRU and LFU and a run whose
+     sample ages the sketch 4 times: per-chunk counts, final state and
+     final sketch, exactly; the ``cuda`` chunked path (kernel 1 peeks,
+     kernel 2 probes) equals both on the LRU run;
+  5. holds kernel 4 (``replay_hierarchical``) to its plain version
+     (``hierarchy.replay_l1_over_l2``, run on CPU tensors) over the first
+     2^14 requests against the full-size L2 filled by a 2^20-request flat
+     prefix, LRU and HYPERBOLIC, and a TTL run: per-chunk counts and both
+     tiers, exactly;
+  6. reproduces the 36 committed k-way ``jnp`` hit ratios of
+     ``benchmarks/baselines/quick.json`` (``replay_batched(batch=1,
+     resident=True)``), the 4 ``resident-eq/*/tinylfu`` ratios and the 6
+     ``hier-hr/*`` ratios, on the ``cuda`` backend, exactly;
+  7. drives the main paths through the user entry points, each with every
+     launch counter set to 0 just before and read just after: the flat path
      (``simulate.replay_batched`` resident, chunked and two-phase, with and
-     without TTLs, and ``peek_victims``) with every launch counter set to 0
-     just before and read just after, and fails unless each kernel ran;
-  6. times each kernel beside its bound and its plain version: CUDA events
-     around back-to-back wrapper calls after a warm-up (what a caller pays,
-     host overhead included) and the kernels' own device time from
-     torch.profiler; and the requests/s of the resident and chunked
-     replays.
+     without TTLs, and ``peek_victims``), the TinyLFU path (resident and
+     chunked, on the first 2^20 requests) and the hierarchy (full depth,
+     and a TTL run); fails unless each kernel of a path ran;
+  8. times each kernel beside its bound and its plain version: CUDA events
+     around wrapper calls (what a caller pays, host overhead included) and
+     the kernels' own device time from torch.profiler; and the requests/s
+     of the resident, chunked and hierarchical replays.  Kernel 4's entry is
+     timed and bounded on the inputs of its check in 5, where its plain
+     version ran too; its whole-trace run is reported under ``full_*``.
 
 Any mismatch or failure exits non-zero; no phase's failure is caught.  The
-last two lines are the per-kernel JSON summary and the device JSON.  Needs
-one CUDA card; without one it exits with code 2 and prints no result.
+last two lines are the per-kernel JSON summary and the device JSON of the
+one card the script drives.  Needs one CUDA card; without one it exits with
+code 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -44,7 +60,8 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-QUICK_JSON = os.path.join(HERE, "benchmarks", "baselines", "quick.json")
+BASELINES = os.path.join(HERE, "benchmarks", "baselines")
+QUICK_JSON = os.path.join(BASELINES, "quick.json")
 
 #: full-size configuration of the slice
 NUM_SETS, WAYS, BATCH = 131072, 8, 1024
@@ -54,6 +71,18 @@ MAIN_POLICIES = ("LRU", "HYPERBOLIC")
 PREFIX = 2**20
 #: TTL replay (smaller: the chunked twin scrubs the whole state per chunk)
 TTL_SETS, TTL_N, TTL_BATCH = 8192, 2**18, 1024
+#: TinyLFU: the paper pairs it with LFU (and LRU); ``for_capacity`` of the
+#: full-size cache never ages on this trace, so one more run ages 4 times
+TL_POLICIES = ("LRU", "LFU")
+TL_AGING = dict(width=2**20, door_bits=2**21, sample=2**20)
+#: hierarchy: the largest power-of-two L1 of 16 ways that fits one SM's
+#: shared memory with its expiry lane, over the full-size L2
+HIER_L1_SETS, HIER_L1_WAYS = 512, 16
+HIER_POLICIES = ("LRU", "HYPERBOLIC")
+#: requests the plain version of kernel 4 walks, one lane at a time
+HIER_CHECK_N = 2**14
+#: hierarchy TTL run: L2 8192 x 8, L1 64 x 16, ttl_churn 2^16 requests
+HIER_TTL_L1_SETS, HIER_TTL_N = 64, 2**16
 #: H100 SXM memory rate (bytes/s), the bound of every kernel here
 HBM_BYTES_PER_S = 3.35e12
 
@@ -77,25 +106,57 @@ def max_abs_err(pairs) -> int:
         if got.shape != want.shape:
             raise AssertionError(f"shape {tuple(got.shape)} != "
                                  f"{tuple(want.shape)}")
-        d = (got.to(torch.int64) - want.to(torch.int64)).abs()
+        d = (got.to(torch.int64) - want.to(got.device, torch.int64)).abs()
         err = max(err, int(d.max()) if d.numel() else 0)
     return err
 
 
 def state_pairs(a, b):
     from repro_torch.core import kway
-    pairs = [(getattr(a, f), getattr(b, f)) for f in kway.STATE_LANES]
-    pairs.append((a.clock.reshape(1), b.clock.reshape(1)))
+    pairs = [(getattr(a, f), getattr(b, f).to(getattr(a, f).device))
+             for f in kway.STATE_LANES]
+    pairs.append((a.clock.reshape(1), b.clock.reshape(1).to(a.clock.device)))
     if (a.expiry is None) != (b.expiry is None):
         raise AssertionError("expiry lane present on one side only")
     if a.expiry is not None:
-        pairs.append((a.expiry, b.expiry))
+        pairs.append((a.expiry, b.expiry.to(a.expiry.device)))
     return pairs
 
 
 def sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
+
+
+def timed(fn):
+    """(result, milliseconds) of one call of ``fn``, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def sketch_pairs(a, b):
+    return [(a.packed, b.packed), (a.door, b.door),
+            (a.additions.reshape(1), b.additions.reshape(1))]
+
+
+def hier_pairs(a, b):
+    return state_pairs(a.l1, b.l1) + state_pairs(a.l2, b.l2)
+
+
+def to_cpu(st):
+    """A KWayState or HierState copied to CPU tensors."""
+    import dataclasses
+    if hasattr(st, "l1"):
+        return type(st)(l1=to_cpu(st.l1), l2=to_cpu(st.l2))
+    return dataclasses.replace(st, **{
+        f.name: None if getattr(st, f.name) is None
+        else getattr(st, f.name).cpu() for f in dataclasses.fields(st)})
 
 
 def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
@@ -114,12 +175,14 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profiled_device_ms(fn, reps: int, names) -> float | None:
+def profiled_device_ms(fn, reps: int, names,
+                       warmup: bool = True) -> float | None:
     """Device time per call of the kernels whose names contain one of
     ``names``, from torch.profiler (CUPTI); None when the profiler records
     no device time for them."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -160,6 +223,40 @@ def lanes_read(policy) -> int:
     so the function does not need it."""
     from repro_torch.core.policies import Policy
     return {Policy.RANDOM: 1, Policy.HYPERBOLIC: 3}.get(policy, 2)
+
+
+def hier_bound_bytes(cfg, hc, before, after, qkeys, enabled) -> int:
+    """Bytes kernel 4's function must move in one run: the key and enable
+    streams (5 B per request); of each L1 and L2 row the live keys route to,
+    the lanes its policy reads (a demoted key goes to its own L2 set, so the
+    L2 rows are those of the live keys and of the keys in L1 at the start);
+    all lanes of each row the run changed, written once; 8 B per chunk."""
+    from repro_torch.core import hashing, hierarchy, kway
+
+    def changed_rows(a, b):
+        d = torch.zeros(a.keys.shape[0], dtype=torch.bool,
+                        device=a.keys.device)
+        for f in kway.STATE_LANES:
+            d |= (getattr(a, f) != getattr(b, f)).any(1)
+        if a.expiry is not None:
+            d |= (a.expiry != b.expiry).any(1)
+        return int(d.sum())
+
+    live = hashing.sanitize_keys(qkeys.reshape(-1)[enabled.reshape(-1)])
+    held = before.l1.keys.reshape(-1)
+    held = held[held != hashing.EMPTY]
+    l1_rows = int(torch.unique(hashing.set_index(
+        live, hc.l1_sets, cfg.seed ^ hierarchy.L1_SEED_SALT)).numel())
+    l2_rows = int(torch.unique(hashing.set_index(
+        torch.cat([live, held]), cfg.num_sets, cfg.seed)).numel())
+    ttl = before.l2.expiry is not None
+    read = lanes_read(cfg.policy) + ttl
+    lanes = len(kway.STATE_LANES) + ttl
+    return (qkeys.numel() * 5
+            + read * 4 * (l1_rows * hc.l1_ways + l2_rows * cfg.ways)
+            + lanes * 4 * (changed_rows(before.l1, after.l1) * hc.l1_ways
+                           + changed_rows(before.l2, after.l2) * cfg.ways)
+            + 8 * qkeys.shape[0])
 
 
 def fmt_ms(x) -> str:
@@ -237,15 +334,17 @@ def phase_probe_kernels(card, trace, dev, results):
 
 
 def phase_replay_kernel(card, trace, ttl_trace, dev, results):
-    """Kernel 3 == chunked torch twin == cuda chunked path, exactly."""
+    """Kernel 3 == chunked torch twin == cuda chunked path, exactly: LRU at
+    full depth, HYPERBOLIC on the first PREFIX requests (its chunked runs
+    are host-bound), and a TTL replay."""
     from repro_torch.core import router, simulate
     from repro_torch.core.backend import make_backend
     from repro_torch.core.kway import KWayConfig
     from repro_torch.core.policies import Policy
 
     err = 0
-    runs = [(Policy.parse(p), NUM_SETS, trace, None, BATCH)
-            for p in MAIN_POLICIES]
+    runs = [(Policy.LRU, NUM_SETS, trace, None, BATCH),
+            (Policy.HYPERBOLIC, NUM_SETS, trace[:PREFIX], None, BATCH)]
     keys, ttls = ttl_trace
     runs.append((Policy.LRU, TTL_SETS, keys,
                  simulate._pad_ttl_chunks(ttls, TTL_BATCH), TTL_BATCH))
@@ -281,6 +380,140 @@ def phase_replay_kernel(card, trace, ttl_trace, dev, results):
     results["replay_resident"]["max_abs_err"] = err
 
 
+def tl_runs():
+    """(policy, TinyLFUConfig, label) of the full-size TinyLFU replays."""
+    from repro_torch.core import admission
+    from repro_torch.core.policies import Policy
+    full = admission.for_capacity(NUM_SETS * WAYS)
+    return [(Policy.parse(p), full, "for_capacity(2^20)")
+            for p in TL_POLICIES] + [
+        (Policy.LRU, admission.TinyLFUConfig(**TL_AGING), "aging")]
+
+
+def phase_tinylfu_kernel(card, trace, dev, results):
+    """Kernel 3's TinyLFU branch == the chunked torch twin, exactly, at full
+    size; the cuda chunked path (kernel 1 peeks, kernel 2 probes) equals
+    both on the first run."""
+    from repro_torch.core import router
+    from repro_torch.core.backend import make_backend
+    from repro_torch.core.kway import KWayConfig
+
+    chunks, en = router.pad_chunks(trace, BATCH)
+    n = len(trace)
+    err = 0
+    for k, (policy, tl, label) in enumerate(tl_runs()):
+        cfg = KWayConfig(num_sets=NUM_SETS, ways=WAYS, policy=policy)
+        cb = make_backend("cuda", cfg, dev)
+        tb = make_backend("torch", cfg, dev)
+        got, ms = timed(lambda: cb.replay(cb.init(), chunks, en, tinylfu=tl))
+        want, plain = timed(lambda: tb.replay(tb.init(), chunks, en,
+                                              tinylfu=tl))
+        sides = [("torch twin", want)]
+        chunked = None
+        if k == 0:
+            scan, chunked = timed(lambda: cb.replay_scan(cb.init(), chunks,
+                                                         en, tinylfu=tl))
+            sides.append(("cuda chunked", scan))
+        h1, e1, s1, k1 = got
+        for name, (h, e, st, sk) in sides:
+            d = max_abs_err([(h1, h), (e1, e)] + state_pairs(s1, st)
+                            + sketch_pairs(k1, sk))
+            if d:
+                raise AssertionError(f"replay_resident TinyLFU {policy.name} "
+                                     f"{label}: != {name} (err {d})")
+            err = max(err, d)
+        say(card, f"kernel 3 TinyLFU == torch twin"
+                  f"{' == cuda chunked' if chunked else ''}: {policy.name} "
+                  f"{label} (width {tl.width}, door_bits {tl.door_bits}, "
+                  f"sample {tl.sample}, {n // tl.sample} agings; sketch "
+                  f"{tl.nbytes()} B), n={n} B={BATCH}: hits {int(h1.sum())} "
+                  f"evictions {int(e1.sum())}, final additions "
+                  f"{int(k1.additions)} (CUDA events: kernel {ms:.3f} ms, "
+                  f"twin {plain:.3f} ms"
+                  + (f", cuda chunked {chunked:.3f} ms" if chunked else "")
+                  + ")")
+        if k == 0:
+            results["replay_resident_tinylfu"].update(
+                plain_ms=plain, chunked_ms=chunked,
+                hit_ratio=int(h1.sum()) / n)
+    results["replay_resident_tinylfu"]["max_abs_err"] = err
+
+
+def phase_hier_kernel(card, trace, ttl_trace, dev, results):
+    """Kernel 4 == its plain version (run on CPU tensors), exactly: the
+    first HIER_CHECK_N requests against the full-size L2 filled by a
+    PREFIX-request flat replay (kernel 3) under an empty L1, LRU and
+    HYPERBOLIC, and a TTL run from empty tiers.  The LRU run's inputs are
+    the ones kernel 4's JSON entry is timed and bounded on."""
+    from repro_torch.core import hashing, hierarchy, router, simulate
+    from repro_torch.core.backend import make_backend
+    from repro_torch.core.kway import KWayConfig
+    from repro_torch.core.policies import Policy
+    from repro_torch.kernels import replay as krp
+
+    hc = hierarchy.HierarchyConfig(l1_sets=HIER_L1_SETS,
+                                   l1_ways=HIER_L1_WAYS)
+    prefix = router.pad_chunks(trace[:PREFIX], BATCH)
+    chunks, en = router.pad_chunks(trace[:HIER_CHECK_N], BATCH)
+    runs = []
+    for name in HIER_POLICIES:
+        cfg = KWayConfig(num_sets=NUM_SETS, ways=WAYS,
+                         policy=Policy.parse(name))
+        st = hierarchy.as_hier_state(cfg, hc, fill_state(cfg, prefix, dev))
+        runs.append((cfg, hc, st, chunks, en, None,
+                     f"L2 filled by {PREFIX} requests"))
+    keys, ttls = ttl_trace
+    cfg = KWayConfig(num_sets=TTL_SETS, ways=WAYS, policy=Policy.LRU)
+    hct = hierarchy.HierarchyConfig(l1_sets=HIER_TTL_L1_SETS,
+                                    l1_ways=HIER_L1_WAYS)
+    tch, ten = router.pad_chunks(keys[:HIER_TTL_N], TTL_BATCH)
+    runs.append((cfg, hct,
+                 hierarchy.make_hier(cfg, hct, device=dev, ttl=True), tch,
+                 ten, simulate._pad_ttl_chunks(ttls[:HIER_TTL_N], TTL_BATCH),
+                 "empty tiers, ttl_churn"))
+    err = 0
+    for k, (cfg, h, st, ch, e, tt, label) in enumerate(runs):
+        be = make_backend("cuda", cfg, dev)
+        (h1, e1, s1, _), ms = timed(lambda: be.replay(st, ch, e, hierarchy=h,
+                                                      ttls=tt))
+        t0 = time.perf_counter()
+        h2, e2, s2, _ = hierarchy.replay_l1_over_l2(cfg, h, to_cpu(st), ch, e,
+                                                    ttls=tt)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        d = max_abs_err([(h1, h2), (e1, e2)] + hier_pairs(s1, s2))
+        if d:
+            raise AssertionError(f"replay_hierarchical {cfg.policy.name} "
+                                 f"{label}: != plain version (err {d})")
+        err = max(err, d)
+        n = int(e.sum())
+        say(card, f"kernel 4 == plain version (CPU tensors): "
+                  f"{cfg.policy.name} L1 {h.l1_sets}x{h.l1_ways} over L2 "
+                  f"{cfg.num_sets}x{cfg.ways}, {label}, n={n} "
+                  f"B={ch.shape[1]} ttl={tt is not None}: hits "
+                  f"{int(h1.sum())} evictions {int(e1.sum())}, L1 occupancy "
+                  f"{int(s1.l1.occupancy())} (kernel {ms:.3f} ms by CUDA "
+                  f"events, plain {plain_ms:.1f} ms host wall)")
+        if k == 0:
+            qk = hashing.key_tensor(ch, dev)
+            qe = torch.from_numpy(e).to(dev)
+            run = lambda: krp.replay_hierarchical(  # noqa: E731
+                cfg, h, st, qk, qe)
+            k_ms = cuda_ms(run, 3)
+            dev_ms = profiled_device_ms(run, 1, ("hier_kernel",))
+            b = hier_bound_bytes(cfg, h, st, s1, qk, qe)
+            results["replay_hierarchical"].update(
+                ms=k_ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=b / HBM_BYTES_PER_S * 1e3, requests=n)
+            say(card, f"replay_hierarchical {cfg.policy.name} {label}, n={n}"
+                      f" B={ch.shape[1]}: {k_ms:.3f} ms/launch (CUDA "
+                      f"events, mean of 3), device time {fmt_ms(dev_ms)} "
+                      f"(torch.profiler), bound "
+                      f"{b / HBM_BYTES_PER_S * 1e3:.6f} ms ({b} B), plain "
+                      f"version on CPU tensors {plain_ms:.1f} ms (host wall, "
+                      f"one run); library_ms: none")
+    results["replay_hierarchical"]["max_abs_err"] = err
+
+
 def phase_quick_records(card, dev):
     """The 36 committed k-way jnp hit ratios, exactly."""
     from repro_torch.core import simulate, traces
@@ -309,12 +542,77 @@ def phase_quick_records(card, dev):
               "exactly (cuda backend, replay_batched batch=1 resident=True)")
 
 
+def phase_slice_records(card, dev):
+    """The 4 resident-eq/*/tinylfu and 6 hier-hr/* committed hit ratios,
+    exactly (figures.py's configurations)."""
+    from repro_torch.core import admission, simulate, trace_io, traces
+    from repro_torch.core.hierarchy import HierarchyConfig
+    from repro_torch.core.kway import KWayConfig
+    from repro_torch.core.policies import Policy
+
+    def records(name, prefix):
+        with open(os.path.join(BASELINES, name)) as f:
+            return [r for r in json.load(f)["records"]
+                    if r["id"].startswith(prefix)]
+
+    bad = []
+    tl = admission.for_capacity(1024)
+    recs = [r for r in records("BENCH_throughput_resident_quick.json",
+                               "resident-eq/") if r["admission"] == "tinylfu"]
+    for r in recs:
+        cfg = KWayConfig(num_sets=128, ways=8,
+                         policy=Policy.parse(r["policy"]))
+        sim = simulate.SimConfig(cfg, tinylfu=tl, backend="cuda", device=dev)
+        got = simulate.replay_batched(
+            sim, traces.generate(r["family"], r["n"], seed=42),
+            batch=r["batch"], resident=True)
+        if got != r["value"]:
+            bad.append((r["id"], got, r["value"]))
+    trace_io.register_fixture_traces()
+    hrecs = records("BENCH_throughput_hierarchy_quick.json", "hier-hr/")
+    sim = simulate.SimConfig(KWayConfig(num_sets=64, ways=8), backend="cuda",
+                             device=dev)
+    for r in hrecs:
+        kw = {"catalog": 4096} if r["family"] == "zipf" else {}
+        got = simulate.replay_batched(
+            sim, traces.generate(r["family"], r["n"], seed=7, **kw),
+            batch=r["batch"], hierarchy=HierarchyConfig(
+                l1_sets=r["l1_sets"], l1_ways=r["l1_ways"]))
+        if got != r["value"]:
+            bad.append((r["id"], got, r["value"]))
+    if len(recs) != 4 or len(hrecs) != 6 or bad:
+        raise AssertionError(f"{len(recs)} TinyLFU and {len(hrecs)} "
+                             f"hierarchy records; differing: {bad}")
+    say(card, "4/4 resident-eq/*/tinylfu and 6/6 hier-hr/* committed hit "
+              "ratios reproduced exactly (cuda backend, replay_batched "
+              "resident=True / hierarchy=...)")
+
+
+KERNELS = ("kway_probe", "kway_fused_probe", "replay_resident",
+           "replay_resident_tinylfu", "replay_hierarchical")
+
+
 def launch_counts() -> dict:
     from repro_torch.kernels import kway_probe as kp
     from repro_torch.kernels import replay as krp
     return {"kway_probe": kp.LAUNCHES["kway_probe"],
             "kway_fused_probe": kp.LAUNCHES["kway_fused_probe"],
-            "replay_resident": krp.launches()}
+            "replay_resident": krp.launches("flat"),
+            "replay_resident_tinylfu": krp.launches("tinylfu"),
+            "replay_hierarchical": krp.launches("hier")}
+
+
+def check_launches(card, path, kernels, results):
+    """Fail unless each kernel of ``path`` ran since the counters were set
+    to 0; add the counts to the kernels' main-path launches."""
+    counts = launch_counts()
+    for name in kernels:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{path} path: {counts}")
+    for name, c in counts.items():
+        results[name]["launches"] = results[name].get("launches", 0) + c
+    say(card, f"main path ({path}) launches: {counts}")
 
 
 def reset_launch_counts():
@@ -348,6 +646,8 @@ def phase_main_path(card, trace, ttl_trace, dev, results):
             raise AssertionError(f"{name}: replay forms disagree: {ratios}")
         say(card, f"main path {name}: hit ratio {ratios['resident']!r} "
                   f"(resident == chunked == two-phase)")
+        results["replay_resident"].setdefault("hit_ratio", {})[name] = \
+            ratios["resident"]
         be = make_backend("cuda", cfg, dev)
         chunks, en = router.pad_chunks(trace[:PREFIX], BATCH)
         _, _, st, _ = be.replay(be.init(), chunks, en)
@@ -360,18 +660,74 @@ def phase_main_path(card, trace, ttl_trace, dev, results):
         batch=TTL_BATCH, resident=True, ttls=ttls)
     say(card, f"main path TTL (ttl_churn, S={TTL_SETS}): hit ratio "
               f"{ttl_ratio!r}")
-    counts = launch_counts()
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path: {counts}")
-        results[name]["launches"] = n
-    say(card, f"main path launches: {counts}")
+    check_launches(card, "flat", ("kway_probe", "kway_fused_probe",
+                                  "replay_resident"), results)
+
+
+def phase_main_path_tinylfu(card, trace, dev, results):
+    """The TinyLFU path through ``replay_batched``, resident and chunked, on
+    the first PREFIX requests (the chunked form is host-bound), counted."""
+    from repro_torch.core import admission, simulate
+    from repro_torch.core.kway import KWayConfig
+    from repro_torch.core.policies import Policy
+
+    tl = admission.for_capacity(NUM_SETS * WAYS)
+    reset_launch_counts()
+    for name in TL_POLICIES:
+        sim = simulate.SimConfig(
+            KWayConfig(num_sets=NUM_SETS, ways=WAYS,
+                       policy=Policy.parse(name)),
+            tinylfu=tl, backend="cuda", device=dev)
+        ratios = {form: simulate.replay_batched(
+            sim, trace[:PREFIX], batch=BATCH, resident=form == "resident")
+            for form in ("resident", "chunked")}
+        if len(set(ratios.values())) != 1:
+            raise AssertionError(f"TinyLFU {name}: replay forms disagree: "
+                                 f"{ratios}")
+        say(card, f"main path TinyLFU {name}, first {PREFIX} requests: hit "
+                  f"ratio {ratios['resident']!r} (resident == chunked)")
+    check_launches(card, "TinyLFU", ("kway_probe", "kway_fused_probe",
+                                     "replay_resident_tinylfu"), results)
+
+
+def phase_main_path_hier(card, trace, ttl_trace, dev, results):
+    """The hierarchy through ``replay_batched(hierarchy=...)`` at full depth
+    (LRU, HYPERBOLIC) and with TTLs, counted; its hit ratio beside the flat
+    cache's."""
+    from repro_torch.core import simulate
+    from repro_torch.core.hierarchy import HierarchyConfig
+    from repro_torch.core.kway import KWayConfig
+    from repro_torch.core.policies import Policy
+
+    hc = HierarchyConfig(l1_sets=HIER_L1_SETS, l1_ways=HIER_L1_WAYS)
+    flat = results["replay_resident"]["hit_ratio"]
+    reset_launch_counts()
+    for name in HIER_POLICIES:
+        sim = simulate.SimConfig(
+            KWayConfig(num_sets=NUM_SETS, ways=WAYS,
+                       policy=Policy.parse(name)), backend="cuda", device=dev)
+        t0 = time.perf_counter()
+        hr = simulate.replay_batched(sim, trace, batch=BATCH, hierarchy=hc)
+        wall = time.perf_counter() - t0
+        say(card, f"main path hierarchy {name}: L1 {HIER_L1_SETS}x"
+                  f"{HIER_L1_WAYS} over L2 {NUM_SETS}x{WAYS} (total "
+                  f"{NUM_SETS * WAYS + hc.l1_capacity} entries): hit ratio "
+                  f"{hr!r}, flat {NUM_SETS}x{WAYS}: {flat[name]!r} "
+                  f"({wall:.1f} s host wall)")
+    keys, ttls = ttl_trace
+    hct = HierarchyConfig(l1_sets=HIER_TTL_L1_SETS, l1_ways=HIER_L1_WAYS)
+    sim = simulate.SimConfig(KWayConfig(num_sets=TTL_SETS, ways=WAYS),
+                             backend="cuda", device=dev)
+    hr = simulate.replay_batched(sim, keys, batch=TTL_BATCH, hierarchy=hct,
+                                 ttls=ttls)
+    say(card, f"main path hierarchy TTL (ttl_churn, L1 {HIER_TTL_L1_SETS}x"
+              f"{HIER_L1_WAYS} over L2 {TTL_SETS}x{WAYS}): hit ratio {hr!r}")
+    check_launches(card, "hierarchy", ("replay_hierarchical",), results)
 
 
 def phase_timing(card, trace, dev, results):
     """CUDA-event times of each kernel and its plain version at full size."""
-    from repro_torch.core import hashing, kway, router
+    from repro_torch.core import admission, hashing, hierarchy, kway, router
     from repro_torch.core.backend import make_backend
     from repro_torch.core.kway import KWayConfig
     from repro_torch.core.policies import Policy
@@ -437,12 +793,13 @@ def phase_timing(card, trace, dev, results):
     # kernel 3: the whole trace; reads the trace (4 B key + 1 B flag per
     # request) and, of each row the trace touches, the lanes its policy
     # reads; writes the 5 lanes of the state it returns and 8 B per chunk
+    chunks, en_c = router.pad_chunks(trace, BATCH)
+    qkeys = hashing.key_tensor(chunks, dev)
+    enabled = torch.from_numpy(en_c).to(dev)
+    n = len(trace)
     for name in MAIN_POLICIES:
         cfg = KWayConfig(num_sets=NUM_SETS, ways=WAYS,
                          policy=Policy.parse(name))
-        chunks, en_c = router.pad_chunks(trace, BATCH)
-        qkeys = hashing.key_tensor(chunks, dev)
-        enabled = torch.from_numpy(en_c).to(dev)
         be = make_backend("cuda", cfg, dev)
         st0 = be.init()
         touched = int(torch.unique(
@@ -450,29 +807,85 @@ def phase_timing(card, trace, dev, results):
         b3 = (qkeys.numel() * 5 + touched * lanes_read(cfg.policy) * row
               + len(kway.STATE_LANES) * NUM_SETS * row + 8 * chunks.shape[0])
         ms = cuda_ms(lambda: krp.replay_resident(cfg, st0, qkeys, enabled), 3)
+        line = (f"replay_resident {name} n={n} B={BATCH}: {ms:.3f} ms/launch"
+                f" ({n / ms * 1e3:.0f} requests/s), bound "
+                f"{b3 / HBM_BYTES_PER_S * 1e3:.4f} ms ({b3} B; {touched} "
+                f"of {NUM_SETS} sets touched)")
+        if name != "LRU":
+            say(card, line + "; library_ms: none")
+            continue
+        # the host-bound plain and chunked replays are timed for LRU only;
         # both ran at this size in phase_replay_kernel: no warm-up call
         plain = cuda_ms(lambda: krp.replay_ref(cfg, st0, qkeys, enabled), 1,
                         warmup=False)
         chunked = cuda_ms(lambda: be.replay_scan(st0, chunks, en_c), 1,
                           warmup=False)
-        n = len(trace)
-        say(card, f"replay_resident {name} n={n} B={BATCH}: {ms:.3f} ms/launch"
-                  f" ({n / ms * 1e3:.0f} requests/s), bound "
-                  f"{b3 / HBM_BYTES_PER_S * 1e3:.4f} ms ({b3} B; {touched} "
-                  f"of {NUM_SETS} sets touched), plain "
-                  f"(torch twin) {plain:.3f} ms ({n / plain * 1e3:.0f} "
-                  f"requests/s), cuda chunked path {chunked:.3f} ms "
-                  f"({n / chunked * 1e3:.0f} requests/s); library_ms: none")
-        if name == "LRU":
-            chunked_busy_share(card, be, st0, chunks[:64], en_c[:64])
-            dev_ms = profiled_device_ms(
-                lambda: krp.replay_resident(cfg, st0, qkeys, enabled), 1,
-                ("replay_kernel",))
-            say(card, f"replay_resident {name}: kernel device time "
-                      f"{fmt_ms(dev_ms)} (torch.profiler)")
-            results["replay_resident"].update(
-                ms=ms, plain_ms=plain, device_ms=dev_ms,
-                bound_ms=b3 / HBM_BYTES_PER_S * 1e3)
+        say(card, line + f", plain (torch twin) {plain:.3f} ms "
+                  f"({n / plain * 1e3:.0f} requests/s), cuda chunked path "
+                  f"{chunked:.3f} ms ({n / chunked * 1e3:.0f} requests/s); "
+                  f"library_ms: none")
+        chunked_busy_share(card, be, st0, chunks[:64], en_c[:64])
+        dev_ms = profiled_device_ms(
+            lambda: krp.replay_resident(cfg, st0, qkeys, enabled), 1,
+            ("replay_kernel",))
+        say(card, f"replay_resident {name}: kernel device time "
+                  f"{fmt_ms(dev_ms)} (torch.profiler)")
+        results["replay_resident"].update(
+            ms=ms, plain_ms=plain, device_ms=dev_ms,
+            bound_ms=b3 / HBM_BYTES_PER_S * 1e3)
+        b3_lru = b3
+
+    # kernel 3's TinyLFU branch (LRU, for_capacity(2^20)): kernel 3's bytes
+    # plus each sketch word the trace touches (counter words of the 4 rows,
+    # door words) read once and written once, and the additions word
+    tl = admission.for_capacity(NUM_SETS * WAYS)
+    cfg = KWayConfig(num_sets=NUM_SETS, ways=WAYS, policy=Policy.LRU)
+    st0 = kway.make_cache(cfg, device=dev)
+    live = hashing.sanitize_keys(qkeys.reshape(-1)[enabled.reshape(-1)])
+    uniq = torch.unique(live)
+    word, _ = admission._positions(tl, uniq)
+    rows = torch.arange(admission.ROWS, device=dev)[:, None]
+    cwords = int(torch.unique(rows * (tl.width // 8) + word).numel())
+    dwords = int(torch.unique(admission._door_pos(tl, uniq)[0]).numel())
+    bt = b3_lru + 2 * 4 * (cwords + dwords + 1)
+    run = lambda: krp.replay_resident(cfg, st0, qkeys, enabled,  # noqa: E731
+                                      tinylfu=tl)
+    ms = cuda_ms(run, 3)
+    dev_ms = profiled_device_ms(run, 1, ("replay_kernel",))
+    r = results["replay_resident_tinylfu"]
+    r.update(ms=ms, device_ms=dev_ms, bound_ms=bt / HBM_BYTES_PER_S * 1e3)
+    say(card, f"replay_resident TinyLFU LRU n={n} B={BATCH}: {ms:.3f} "
+              f"ms/launch ({n / ms * 1e3:.0f} requests/s), device time "
+              f"{fmt_ms(dev_ms)} (torch.profiler), bound "
+              f"{bt / HBM_BYTES_PER_S * 1e3:.4f} ms ({bt} B; {cwords} counter "
+              f"and {dwords} door words touched), plain (torch twin, phase "
+              f"4) {r['plain_ms']:.3f} ms ({n / r['plain_ms'] * 1e3:.0f} "
+              f"requests/s), cuda chunked path {r['chunked_ms']:.3f} ms "
+              f"({n / r['chunked_ms'] * 1e3:.0f} requests/s); hit ratio "
+              f"{r['hit_ratio']!r}; library_ms: none")
+
+    # kernel 4 over the whole trace (LRU, L1 512 x 16 over the empty L2),
+    # bounded as in phase_hier_kernel; its plain version walks lanes one at
+    # a time and is timed on that phase's 2^14-request inputs only
+    hc = hierarchy.HierarchyConfig(l1_sets=HIER_L1_SETS,
+                                   l1_ways=HIER_L1_WAYS)
+    hst = hierarchy.make_hier(cfg, hc, device=dev)
+    run = lambda: krp.replay_hierarchical(cfg, hc, hst, qkeys,  # noqa: E731
+                                          enabled)
+    # the main path ran it at this size: no warm-up call
+    (_, _, hout, _), ms = timed(run)
+    dev_ms = profiled_device_ms(run, 1, ("hier_kernel",), warmup=False)
+    bh = hier_bound_bytes(cfg, hc, hst, hout, qkeys, enabled)
+    results["replay_hierarchical"].update(
+        full_requests=n, full_ms=ms, full_device_ms=dev_ms,
+        full_bound_ms=bh / HBM_BYTES_PER_S * 1e3)
+    say(card, f"replay_hierarchical LRU whole trace n={n} B={BATCH}: "
+              f"{ms:.3f} ms/launch ({n / ms * 1e3:.0f} requests/s, "
+              f"{ms * 1e6 / n:.1f} ns per request), device time "
+              f"{fmt_ms(dev_ms)} (torch.profiler), bound "
+              f"{bh / HBM_BYTES_PER_S * 1e3:.4f} ms ({bh} B); plain version: "
+              f"timed on the {HIER_CHECK_N}-request inputs only; "
+              f"library_ms: none")
 
 
 def main() -> int:
@@ -501,6 +914,21 @@ def main() -> int:
               f"{TRACE['n']}, seed={TRACE['seed']}, catalog={TRACE['catalog']},"
               f" alpha={TRACE['alpha']}), batch {BATCH} = "
               f"{TRACE['n'] // BATCH} chunks, policies {MAIN_POLICIES}")
+    tl_configs = {}
+    for policy, tl, label in tl_runs():
+        tl_configs.setdefault(label, (tl, []))[1].append(policy.name)
+    for label, (tl, names) in tl_configs.items():
+        say(card, f"full-size config: TinyLFU {label}: width {tl.width}, "
+                  f"door_bits {tl.door_bits}, sample {tl.sample}, sketch "
+                  f"{tl.nbytes()} B; policies {names}")
+    l1_bytes = HIER_L1_SETS * HIER_L1_WAYS * 4
+    say(card, f"full-size config: hierarchy L1 {HIER_L1_SETS} sets x "
+              f"{HIER_L1_WAYS} ways ({HIER_L1_SETS * HIER_L1_WAYS} entries, "
+              f"{l1_bytes} B per lane, {6 * l1_bytes} B with the expiry "
+              f"lane) over the full-size L2 ({6 * state_bytes} B), promote "
+              f"and demote on, policies {HIER_POLICIES}; TTL run L1 "
+              f"{HIER_TTL_L1_SETS}x{HIER_L1_WAYS} over L2 {TTL_SETS}x{WAYS}, "
+              f"ttl_churn {HIER_TTL_N} requests")
     t0 = time.perf_counter()
     trace = traces.generate(TRACE["family"], TRACE["n"], seed=TRACE["seed"],
                             catalog=TRACE["catalog"], alpha=TRACE["alpha"])
@@ -519,13 +947,24 @@ def main() -> int:
         "replay_resident": dict(
             source="src/repro_torch/kernels/csrc/replay.cu",
             replaces="src/repro/kernels/replay.py:549"),
+        "replay_resident_tinylfu": dict(
+            source="src/repro_torch/kernels/csrc/replay.cu",
+            replaces="src/repro/kernels/replay.py:190"),
+        "replay_hierarchical": dict(
+            source="src/repro_torch/kernels/csrc/replay_hier.cu",
+            replaces="src/repro/kernels/replay.py:916"),
     }
-    for phase, args in ((phase_probe_kernels, (trace, dev, results)),
-                        (phase_replay_kernel, (trace, ttl_trace, dev,
-                                               results)),
-                        (phase_quick_records, (dev,)),
-                        (phase_main_path, (trace, ttl_trace, dev, results)),
-                        (phase_timing, (trace, dev, results))):
+    for phase, args in (
+            (phase_probe_kernels, (trace, dev, results)),
+            (phase_replay_kernel, (trace, ttl_trace, dev, results)),
+            (phase_tinylfu_kernel, (trace, dev, results)),
+            (phase_hier_kernel, (trace, ttl_trace, dev, results)),
+            (phase_quick_records, (dev,)),
+            (phase_slice_records, (dev,)),
+            (phase_main_path, (trace, ttl_trace, dev, results)),
+            (phase_main_path_tinylfu, (trace, dev, results)),
+            (phase_main_path_hier, (trace, ttl_trace, dev, results)),
+            (phase_timing, (trace, dev, results))):
         t0 = time.perf_counter()
         phase(card, *args)
         say(card, f"{phase.__name__} done in {time.perf_counter() - t0:.1f} s")
@@ -539,16 +978,20 @@ def main() -> int:
             "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
-            "library_ms": None})
+            "library_ms": None,
+            **{k: v for k, v in r.items()
+               if k == "requests" or k.startswith("full_")}})
     print("kernels " + ", ".join(
         f"{k['name']}: launches={k['launches']} exact={k['exact']} "
         f"ms={k['ms']:.4f}" for k in kernels) + f" [{card}]")
+    say(card, f"cards on this machine: {torch.cuda.device_count()}; the "
+              f"script drives card 0")
     say(card, f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
+    # the script drives one card, whatever the machine holds
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
 

@@ -8,20 +8,23 @@ Counterpart of ``repro/core/backend.py`` with the port's own registry:
     state, ek, ev, slot_sets, slot_ways = backend.put(state, keys, vals)
     state, hit, vals, ek, ev = backend.access(state, keys, vals)
     vkeys, vvalid = backend.peek_victims(state, keys)
-    hits, evs, state, _ = backend.replay(state, chunks, enabled)  # _: the
-                                  # TinyLFU sketch slot, None until ported
+    hits, evs, state, sketch = backend.replay(state, chunks, enabled,
+                                              tinylfu=None, sketch=None,
+                                              hierarchy=None, ttls=None)
 
   * ``torch``: the tensor twin (``core/kway.py``) on any device;
-  * ``cuda``: the hand-written kernels (kernels 1-3) feeding the same
+  * ``cuda``: the hand-written kernels (kernels 1-4) feeding the same
     applies; for CPU tensors the kernels' plain versions run instead;
-  * ``ref``: the sequential Python oracle (``core/refimpl.py``).
+  * ``ref``: the sequential Python oracle (``core/refimpl.py``); it has no
+    TinyLFU or hierarchical replay, as in the reference.
 
 ``device=None`` means the card ("cuda"); without one, ``make_backend``
 raises unless the caller passes ``device="cpu"``.  Keys are uint32 (numpy
 arrays or tensors); evicted and victim keys come back as int32 bit
-patterns.  The resident-replay VMEM budget of the reference has no
-counterpart: the state lives in device memory and ``cuda`` replay always
-runs kernel 3.
+patterns.  The reference's VMEM budgets (``resident_fits``, ``hier_fits``
+and the ``l1_demotion`` fallback) have no counterpart: both tiers live in
+device memory, so ``cuda`` replay always runs kernel 3, or kernel 4 for a
+hierarchy.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import hashing, kway
+from repro_torch.core import admission, hashing, kway
+from repro_torch.core import hierarchy as hier_mod
 from repro_torch.core.hashing import EMPTY
 from repro_torch.core.kway import KWayConfig, KWayState
 from repro_torch.core.refimpl import RefKWay
@@ -38,12 +42,15 @@ from repro_torch.core.refimpl import RefKWay
 _REGISTRY: dict[str, type] = {}
 
 #: ROADMAP items still to port, named by the options that need them.
-TINYLFU_TODO = ("TinyLFU admission is not ported yet (ROADMAP Queue A "
-                "item 5, core/admission.py)")
 SHARDS_TODO = ("set sharding is not ported yet (ROADMAP Queue A item 8, "
                "core/sharded.py)")
-HIERARCHY_TODO = ("the L1-over-L2 hierarchy is not ported yet (ROADMAP "
-                  "Queue A item 9 and Queue B item 4, core/hierarchy.py)")
+
+#: option pairs the reference refuses, refused with its words
+HIER_TINYLFU = ("hierarchical replay does not support TinyLFU admission "
+                "(the sketch has no per-tier semantics yet)")
+REF_TINYLFU = "TinyLFU replay is not wired for the ref backend"
+REF_HIER = ("hierarchical replay needs the 'torch' or 'cuda' backend; the "
+            "ref oracle is flat-only")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -148,18 +155,50 @@ class CacheBackend:
                                      admit_on_miss=admit_on_miss,
                                      enabled=enabled, slot_value=slot_value)
 
-    def replay(self, state, chunks, enabled, tinylfu=None, hierarchy=None,
-               ttls=None):
+    def replay(self, state, chunks, enabled, tinylfu=None, sketch=None,
+               hierarchy=None, ttls=None):
         """Replay a chunked trace (``chunks`` uint32 [steps, B], ``enabled``
         bool [steps, B], optional ``ttls`` int32 [steps, B]; payload
         ``val == key``) -> (hits int32 [steps], evs int32 [steps], state',
-        None).  Default: the chunked loop over ``access``, which is the
-        oracle of the replay kernel."""
-        _refuse_unported(tinylfu, hierarchy)
+        sketch' or None).
+
+        ``tinylfu`` (a ``TinyLFUConfig``, with an optional ``sketch``;
+        fresh when None) gates each miss by TinyLFU admission and returns
+        the updated sketch.  ``hierarchy`` (a ``HierarchyConfig`` with
+        ``l1_sets > 0``) replays through the L1-over-L2 hierarchy:
+        ``state`` may be a ``HierState`` or a bare L2 ``KWayState`` (an
+        empty L1 is attached), and a ``HierState`` comes back.
+
+        Default: the chunked loop over ``access`` (with TinyLFU record ->
+        peek -> admit -> access per chunk), the oracle of kernel 3; the
+        hierarchy runs ``hierarchy.replay_l1_over_l2``, kernel 4's plain
+        version."""
+        _check_replay(tinylfu, ttls)
+        if hierarchy is not None and hierarchy.enabled:
+            return self._replay_hier(state, chunks, enabled, tinylfu,
+                                     hierarchy, ttls)
+        qkeys = self.keys(chunks)
+        enabled = _mask(enabled, self.device)
+        if tinylfu is not None:
+            if sketch is None:
+                sketch = admission.make_sketch(tinylfu, self.device)
+            return admission.replay_chunks(tinylfu, sketch, self.access,
+                                           self.peek_victims, state, qkeys,
+                                           enabled)
         hits, evs, state = kway.replay_chunks(
-            self.access, state, self.keys(chunks), _mask(enabled, self.device),
+            self.access, state, qkeys, enabled,
             None if ttls is None else _vals(ttls, self.device))
         return hits, evs, state, None
+
+    def _replay_hier(self, state, chunks, enabled, tinylfu, hier, ttls):
+        """The hierarchy through its plain version -> (hits, evs,
+        HierState', None)."""
+        if tinylfu is not None:
+            raise ValueError(HIER_TINYLFU)
+        hst = hier_mod.as_hier_state(self.cfg, hier, state)
+        return hier_mod.replay_l1_over_l2(
+            self.cfg, hier, hst, chunks, enabled,
+            None if ttls is None else _vals(ttls, self.device))
 
 
 def _landed_vals(cfg, hit, vals, qvals, ss, sw, slot_value):
@@ -172,11 +211,9 @@ def _landed_vals(cfg, hit, vals, qvals, ss, sw, slot_value):
         ss >= 0, slot_id, torch.full_like(slot_id, -1)))
 
 
-def _refuse_unported(tinylfu, hierarchy):
-    if tinylfu is not None:
-        raise ValueError(TINYLFU_TODO)
-    if hierarchy is not None:
-        raise ValueError(HIERARCHY_TODO)
+def _check_replay(tinylfu, ttls):
+    if ttls is not None and tinylfu is not None:
+        raise ValueError(admission.TTL_EXCLUSIVE)
 
 
 @register_backend("torch")
@@ -263,17 +300,29 @@ class CudaBackend(CacheBackend):
         _, _, hit, _, _, vkey = ops.probe(self.cfg, state, self.keys(qkeys))
         return vkey, (vkey != EMPTY) & (~hit)
 
-    def replay_scan(self, state, chunks, enabled, ttls=None):
+    def replay_scan(self, state, chunks, enabled, tinylfu=None, sketch=None,
+                    ttls=None):
         """The chunked loop over this backend's ``access`` (kernel 2 + the
-        torch apply): the replay kernel's second oracle."""
-        return CacheBackend.replay(self, state, chunks, enabled, ttls=ttls)
+        torch apply; with TinyLFU, kernel 1 peeks the victims): kernel 3's
+        second oracle."""
+        return CacheBackend.replay(self, state, chunks, enabled,
+                                   tinylfu=tinylfu, sketch=sketch, ttls=ttls)
 
-    def replay(self, state, chunks, enabled, tinylfu=None, hierarchy=None,
-               ttls=None):
+    def replay(self, state, chunks, enabled, tinylfu=None, sketch=None,
+               hierarchy=None, ttls=None):
+        """Kernel 4 for a hierarchy, else kernel 3 (with TinyLFU's branch
+        when ``tinylfu``), one launch for the whole trace."""
         from repro_torch.kernels import ops
-        _refuse_unported(tinylfu, hierarchy)
+        _check_replay(tinylfu, ttls)
+        if hierarchy is not None and hierarchy.enabled:
+            if tinylfu is not None:
+                raise ValueError(HIER_TINYLFU)
+            hst = hier_mod.as_hier_state(self.cfg, hierarchy, state,
+                                         ttl=ttls is not None)
+            return ops.replay_hierarchical(self.cfg, hierarchy, hst, chunks,
+                                           enabled, ttls=ttls)
         return ops.replay_resident(self.cfg, state, chunks, enabled,
-                                   ttls=ttls)
+                                   ttls=ttls, tinylfu=tinylfu, sketch=sketch)
 
 
 @register_backend("ref")
@@ -282,6 +331,16 @@ class RefBackend(CacheBackend):
     imports the state into a ``RefKWay``, replays the batch one lane at a
     time (a disabled lane still consumes a timestamp) and exports back.
     Bit-identical to the others at batch size 1."""
+
+    def replay(self, state, chunks, enabled, tinylfu=None, sketch=None,
+               hierarchy=None, ttls=None):
+        """The chunked loop over the oracle's ``access``; TinyLFU and the
+        hierarchy are refused, as the reference refuses them."""
+        if tinylfu is not None:
+            raise ValueError(REF_TINYLFU)
+        if hierarchy is not None and hierarchy.enabled:
+            raise ValueError(REF_HIER)
+        return super().replay(state, chunks, enabled, ttls=ttls)
 
     def _import(self, state: KWayState) -> RefKWay:
         cfg = self.cfg

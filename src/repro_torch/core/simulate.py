@@ -4,10 +4,12 @@ Counterpart of ``repro/core/simulate.py``.  ``replay`` is the exact
 sequential replay (batch size 1); ``replay_batched`` replays B requests per
 step with the deterministic conflict resolution of ``kway.access``, flat,
 ``resident=True`` (``CacheBackend.replay``: kernel 3 on the ``cuda``
-backend, one launch for the whole trace) or with per-request ``ttls``.
+backend, one launch for the whole trace), with per-request ``ttls``, with
+TinyLFU admission (``SimConfig.tinylfu``) or through the L1-over-L2
+``hierarchy`` (kernel 4 on ``cuda``).
 
-Not ported yet, and refused with the ROADMAP item that brings them:
-TinyLFU admission, ``shards > 1`` and ``hierarchy``.
+Not ported yet, and refused with the ROADMAP item that brings it:
+``shards > 1``.
 """
 from __future__ import annotations
 
@@ -17,9 +19,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import kway, router
-from repro_torch.core.backend import (HIERARCHY_TODO, SHARDS_TODO,
-                                      TINYLFU_TODO, make_backend,
+from repro_torch.core import admission, kway, router
+from repro_torch.core.admission import TinyLFUConfig
+from repro_torch.core.backend import (HIER_TINYLFU, REF_HIER, REF_TINYLFU,
+                                      SHARDS_TODO, make_backend,
                                       resolve_device)
 from repro_torch.core.kway import KWayConfig
 
@@ -27,7 +30,7 @@ from repro_torch.core.kway import KWayConfig
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     cache: KWayConfig
-    tinylfu: Optional[object] = None   # not ported yet: must stay None
+    tinylfu: Optional[TinyLFUConfig] = None   # None: admit always
     backend: str = "cuda"
     # True: replay through the unfused get-then-put composition
     # (backend.access_two_phase), the oracle of the fused access.
@@ -55,27 +58,41 @@ def _pad_ttl_chunks(ttls: np.ndarray, batch: int) -> np.ndarray:
 
 
 def _replay_chunks(sim: SimConfig, chunks, enabled, tchunks=None) -> int:
-    """Chunked loop through the backend's (fused or two-phase) access ->
-    total hits."""
+    """Chunked loop through the backend's (fused or two-phase) access, with
+    TinyLFU's record -> peek -> admit per chunk when configured -> total
+    hits."""
     be = make_backend(sim.backend, sim.cache, sim.device)
+    keys = be.keys(chunks)
+    en = torch.as_tensor(enabled).to(be.device)
+    if sim.tinylfu is not None:
+        hits, _, _, _ = admission.replay_chunks(
+            sim.tinylfu, admission.make_sketch(sim.tinylfu, be.device),
+            _access_fn(sim, be), be.peek_victims, be.init(), keys, en)
+        return int(hits.sum())
     tt = None if tchunks is None else torch.from_numpy(tchunks).to(be.device)
     hits, _, _ = kway.replay_chunks(
-        _access_fn(sim, be), be.init(ttl=tchunks is not None),
-        be.keys(chunks), torch.as_tensor(enabled).to(be.device), tt)
+        _access_fn(sim, be), be.init(ttl=tchunks is not None), keys, en, tt)
     return int(hits.sum())
+
+
+def _refuse_ref_tinylfu(sim: SimConfig):
+    if sim.tinylfu is not None and sim.backend == "ref":
+        raise ValueError(REF_TINYLFU)
 
 
 def replay(sim: SimConfig, trace: np.ndarray) -> float:
     """Exact sequential replay (batch size 1) -> hit ratio.  Traceable
-    backends run it as a one-lane resident replay (kernel 3 on ``cuda``)."""
+    backends run it as a one-lane resident replay (kernel 3 on ``cuda``),
+    with TinyLFU's record -> peek -> admit -> access per request when
+    ``sim.tinylfu`` is set."""
     trace = np.asarray(trace, np.uint32)
-    if sim.tinylfu is not None:
-        raise ValueError(TINYLFU_TODO)
+    _refuse_ref_tinylfu(sim)
     chunks, enabled = router.pad_chunks(trace, 1)
     if sim.backend == "ref" or sim.two_phase:
         return _replay_chunks(sim, chunks, enabled) / trace.shape[0]
     be = make_backend(sim.backend, sim.cache, sim.device)
-    hits, _, _, _ = be.replay(be.init(), chunks, enabled)
+    hits, _, _, _ = be.replay(be.init(), chunks, enabled,
+                              tinylfu=sim.tinylfu)
     return int(hits.sum()) / trace.shape[0]
 
 
@@ -87,20 +104,23 @@ def replay_batched(sim: SimConfig, trace: np.ndarray, batch: int = 64,
 
     ``resident=True`` replays through ``CacheBackend.replay``: on the
     ``cuda`` backend kernel 3, the whole trace in one launch, bit-identical
-    to the chunked loop.  ``ttls`` (int32 [n], aligned with ``trace``) gives
+    to the chunked loop.  ``sim.tinylfu`` gates each miss by TinyLFU
+    admission (record -> peek -> admit per chunk; kernel 3's TinyLFU branch
+    when resident).  ``ttls`` (int32 [n], aligned with ``trace``) gives
     each request a time-to-live on the logical clock: a missing request
-    inserts with deadline ``clock + 2B + ttl`` (``ttl <= 0``: never), and an
-    expired entry is never a hit.  TTL replays run through
+    inserts with deadline ``clock + 2B + ttl`` (``ttl <= 0``: never), and
+    an expired entry is never a hit.  TTL replays run through
     ``CacheBackend.replay`` as in the reference.
+
+    ``hierarchy`` (a ``HierarchyConfig`` with ``l1_sets > 0``) replays
+    through the exclusive L1-over-L2 hierarchy (kernel 4 on ``cuda``, its
+    plain version on ``torch``), with or without ``ttls``; ``l1_sets == 0``
+    is the flat path unchanged.  The hierarchy takes no TinyLFU and no
+    ``two_phase``, as in the reference.
     """
     trace = np.asarray(trace, np.uint32)
     n = trace.shape[0]
-    if sim.tinylfu is not None:
-        raise ValueError(TINYLFU_TODO)
-    if shards > 1:
-        raise ValueError(SHARDS_TODO)
-    if hierarchy is not None:
-        raise ValueError(HIERARCHY_TODO)
+    _refuse_ref_tinylfu(sim)
     if ttls is not None:
         ttls = np.asarray(ttls, np.int32)
         if ttls.shape[0] != n:
@@ -110,6 +130,19 @@ def replay_batched(sim: SimConfig, trace: np.ndarray, batch: int = 64,
             raise ValueError(
                 "per-request TTLs require the fused access path; "
                 "two_phase has no expiry semantics")
+        if sim.tinylfu is not None:
+            raise ValueError(admission.TTL_EXCLUSIVE)
+    if hierarchy is not None and not hierarchy.enabled:
+        hierarchy = None          # l1_sets == 0: the flat path, verbatim
+    if hierarchy is not None:
+        if sim.backend == "ref":
+            raise ValueError(REF_HIER)
+        if sim.two_phase:
+            raise ValueError(
+                "hierarchical replay is the fused sequential-lane path; "
+                "two_phase does not compose with it")
+        if sim.tinylfu is not None:
+            raise ValueError(HIER_TINYLFU)
     if resident:
         if sim.backend == "ref":
             raise ValueError(
@@ -119,11 +152,15 @@ def replay_batched(sim: SimConfig, trace: np.ndarray, batch: int = 64,
             raise ValueError(
                 "resident replay is the fused access path; two_phase is the "
                 "chunked oracle — replay with resident=False")
+    if shards > 1:
+        raise ValueError(SHARDS_TODO)
     chunks, enabled = router.pad_chunks(trace, batch)
     tchunks = None if ttls is None else _pad_ttl_chunks(ttls, batch)
-    if resident or (tchunks is not None and sim.backend != "ref"):
+    if (hierarchy is not None or resident
+            or (tchunks is not None and sim.backend != "ref")):
         be = make_backend(sim.backend, sim.cache, sim.device)
         hits, _, _, _ = be.replay(be.init(ttl=tchunks is not None), chunks,
-                                  enabled, ttls=tchunks)
+                                  enabled, tinylfu=sim.tinylfu,
+                                  hierarchy=hierarchy, ttls=tchunks)
         return int(hits.sum()) / n
     return _replay_chunks(sim, chunks, enabled, tchunks) / n

@@ -21,8 +21,7 @@ Generators are seeded numpy (host side — traces are inputs, not model state).
 
 Counterpart of ``repro/core/traces.py``: the same generators with the
 same rng call order, so a seed gives the same trace in both packages.
-Registering ingested traces (``register_family``) comes with the port of
-``core/trace_io.py``.
+``core/trace_io.py`` registers ingested traces through ``register_family``.
 """
 from __future__ import annotations
 
@@ -30,7 +29,8 @@ import inspect
 
 import numpy as np
 
-__all__ = ["generate", "generate_ttl", "FAMILIES", "TTL_FAMILIES"]
+__all__ = ["generate", "generate_ttl", "register_family",
+           "unregister_family", "FAMILIES", "TTL_FAMILIES"]
 
 
 def _zipf_catalog(rng: np.random.Generator, n: int, catalog: int, alpha: float):
@@ -132,6 +132,31 @@ FAMILIES = {
 TTL_FAMILIES = {
     "ttl_churn": ttl_churn,
 }
+
+#: the synthetic families above are permanent; runtime registrations
+#: (ingested traces) may shadow nothing in this set
+_BUILTINS = frozenset(FAMILIES)
+
+
+def register_family(name: str, fn) -> None:
+    """Register a runtime trace family (``fn(rng, n, **kw) -> ndarray``).
+    Re-registering a runtime family replaces it; the built-in synthetic
+    families cannot be shadowed."""
+    if name in _BUILTINS:
+        raise ValueError(
+            f"cannot register {name!r}: it would shadow the built-in "
+            f"synthetic family of the same name")
+    FAMILIES[name] = fn
+
+
+def unregister_family(name: str) -> None:
+    """Remove a runtime-registered family (built-ins cannot be removed),
+    with a matching runtime ``TTL_FAMILIES`` entry."""
+    if name in _BUILTINS:
+        raise ValueError(f"cannot unregister built-in family {name!r}")
+    FAMILIES.pop(name, None)
+    TTL_FAMILIES.pop(name, None)
+
 
 def generate(family: str, n: int, seed: int = 0, **kw) -> np.ndarray:
     fn = FAMILIES.get(family)

@@ -2,8 +2,9 @@
 
     kway_probe — kernels 1 and 2: batched set probe + victim order, and the
                  fused probe of ``access`` (csrc/kway_probe.cu)
-    replay     — kernel 3: a whole chunked trace in one launch
-                 (csrc/replay.cu)
+    replay     — kernel 3: a whole chunked trace in one launch, flat, TTL
+                 or TinyLFU (csrc/replay.cu); kernel 4: the same through
+                 the L1-over-L2 hierarchy (csrc/replay_hier.cu)
     ops        — the wrappers the backends call
     ref        — plain torch versions of kernels 1 and 2
     _build     — nvcc build into kernels/.build/ and ctypes loading

@@ -68,15 +68,37 @@ def fused_probe(cfg: KWayConfig, state: KWayState, qkeys, enabled=None):
 
 
 def replay_resident(cfg: KWayConfig, state: KWayState, chunks, enabled,
-                    ttls=None):
-    """Whole-trace replay in ONE kernel launch.  ``chunks`` uint32 keys
-    [steps, B] and ``enabled`` bool [steps, B] in the ``router.pad_chunks``
-    layout, optional ``ttls`` int32 [steps, B].
-    -> (hits int32 [steps], evs int32 [steps], state', None)."""
+                    ttls=None, tinylfu=None, sketch=None):
+    """Whole-trace replay in ONE kernel launch (kernel 3).  ``chunks``
+    uint32 keys [steps, B] and ``enabled`` bool [steps, B] in the
+    ``router.pad_chunks`` layout, optional ``ttls`` int32 [steps, B], or
+    TinyLFU admission (``tinylfu`` and an optional ``sketch``).
+    -> (hits int32 [steps], evs int32 [steps], state', sketch' or None)."""
     dev = state.device
+    qkeys, enabled, ttls = _chunk_tensors(chunks, enabled, ttls, dev)
+    return _rp.replay_resident(cfg, state, qkeys, enabled, ttls,
+                               tinylfu=tinylfu, sketch=sketch)
+
+
+def replay_hierarchical(cfg: KWayConfig, hier, state, chunks, enabled,
+                        ttls=None):
+    """Whole-trace replay through the L1-over-L2 hierarchy in ONE kernel
+    launch (kernel 4).  ``state`` is a ``HierState``; ``chunks`` /
+    ``enabled`` / ``ttls`` as for ``replay_resident``.  Keys are sanitized
+    in torch; the kernel hashes them to their sets (``seed ^ L1_SEED_SALT``
+    over ``l1_sets``, ``seed`` over ``num_sets``), as it must for every
+    demoted key.
+    -> (hits int32 [steps], evs int32 [steps], HierState', None)."""
+    dev = state.l2.device
+    qkeys, enabled, ttls = _chunk_tensors(chunks, enabled, ttls, dev)
+    return _rp.replay_hierarchical(cfg, hier, state, qkeys, enabled, ttls)
+
+
+def _chunk_tensors(chunks, enabled, ttls, dev):
+    """Chunked host or device arrays -> (int32 keys, bool flags, int32 TTLs
+    or None) on ``dev``."""
     qkeys = hashing.key_tensor(chunks, dev)
     enabled = torch.as_tensor(enabled, dtype=torch.bool).to(dev)
     if ttls is not None:
         ttls = torch.as_tensor(ttls, dtype=torch.int32).to(dev)
-    hits, evs, state = _rp.replay_resident(cfg, state, qkeys, enabled, ttls)
-    return hits, evs, state, None
+    return qkeys, enabled, ttls

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import kway, router, simulate, traces
+from repro_torch.core import admission, hierarchy, kway, router, simulate, traces
 from repro_torch.core.backend import make_backend
 from repro_torch.core.kway import KWayConfig
 from repro_torch.core.policies import Policy
@@ -121,7 +121,8 @@ def test_replay_kernel_matches_chunked_twin(cuda, policy, ways, batch):
     h1, e1, s1, _ = cb.replay(cb.init(), chunks, en)
     torch.cuda.synchronize()
     assert krp.trace_counts() == {
-        ("launch", int(policy), 32, ways, chunks.shape[0], batch, False): 1}
+        ("launch", int(policy), 32, ways, chunks.shape[0], batch, False,
+         False): 1}
     tb = make_backend("torch", cfg, cuda)
     h2, e2, s2, _ = tb.replay(tb.init(), chunks, en)
     h3, e3, s3, _ = cb.replay_scan(cb.init(), chunks, en)
@@ -153,3 +154,130 @@ def test_replay_kernel_ttl_matches_chunked_twin(cuda, policy):
 def test_cuda_backend_runs_on_the_card_by_default(cuda):
     be = make_backend("cuda", KWayConfig(num_sets=8, ways=4))
     assert be.init().keys.device.type == "cuda"
+
+
+def _assert_sketch_equal(a, b, what):
+    _eq(a.packed, b.packed, f"{what}: sketch counters")
+    _eq(a.door, b.door, f"{what}: sketch door")
+    _eq(a.additions.reshape(()), b.additions.reshape(()),
+        f"{what}: sketch additions")
+
+
+@pytest.mark.parametrize("policy", ALL_POLICIES)
+@pytest.mark.parametrize("ways,batch", [(4, 64), (8, 300), (32, 1500)])
+def test_replay_kernel_tinylfu_matches_chunked_twin(cuda, policy, ways,
+                                                   batch):
+    """Kernel 3's TinyLFU branch == the torch chunked loop (record -> peek
+    -> admit -> access) == the cuda chunked path (kernels 1 and 2), with a
+    sample short enough to age several times and a resumed sketch."""
+    cfg = KWayConfig(num_sets=32, ways=ways, policy=policy)
+    tl = admission.TinyLFUConfig(width=64, door_bits=128, sample=700)
+    tr = traces.generate("zipf", max(5000, 4 * batch), seed=ways,
+                         catalog=cfg.capacity * 3)
+    chunks, en = router.pad_chunks(tr, batch)
+    cb = make_backend("cuda", cfg, cuda)
+    tb = make_backend("torch", cfg, cuda)
+    sk0 = admission.make_sketch(tl, cuda)
+    krp.reset_trace_counts()
+    h1, e1, s1, k1 = cb.replay(cb.init(), chunks, en, tinylfu=tl, sketch=sk0)
+    torch.cuda.synchronize()
+    assert krp.launches("tinylfu") == 1 and krp.launches("flat") == 0
+    h2, e2, s2, k2 = tb.replay(tb.init(), chunks, en, tinylfu=tl, sketch=sk0)
+    h3, e3, s3, k3 = cb.replay_scan(cb.init(), chunks, en, tinylfu=tl,
+                                    sketch=sk0)
+    for h, e, s, k, what in ((h2, e2, s2, k2, "torch twin"),
+                             (h3, e3, s3, k3, "cuda scan")):
+        _eq(h1, h, f"{what}: per-chunk hits")
+        _eq(e1, e, f"{what}: per-chunk evictions")
+        _assert_states_equal(s1, s, what)
+        _assert_sketch_equal(k1, k, what)
+    # resumed: the second half of the trace from the first half's state
+    half = chunks.shape[0] // 2
+    _, _, sa, ka = cb.replay(cb.init(), chunks[:half], en[:half], tinylfu=tl)
+    hb, eb, sb, kb = cb.replay(sa, chunks[half:], en[half:], tinylfu=tl,
+                               sketch=ka)
+    _, _, sc, kc = tb.replay(tb.init(), chunks[:half], en[:half], tinylfu=tl)
+    hc, ec, sc, kc = tb.replay(sc, chunks[half:], en[half:], tinylfu=tl,
+                               sketch=kc)
+    _eq(hb, hc, "resumed: per-chunk hits")
+    _assert_states_equal(sb, sc, "resumed")
+    _assert_sketch_equal(kb, kc, "resumed")
+
+
+def _hier_run(cfg, dev, n, seed, ttl):
+    if ttl:
+        keys, ttls = traces.generate_ttl("ttl_churn", n, seed=seed,
+                                         catalog=cfg.capacity * 2,
+                                         hot_ttl=300, churn_ttl=30)
+    else:
+        keys = traces.generate("zipf", n, seed=seed,
+                               catalog=cfg.capacity * 4)
+    chunks, en = router.pad_chunks(keys, 24)
+    en[-1, -5:] = False
+    tt = simulate._pad_ttl_chunks(ttls, 24) if ttl else None
+    be = make_backend("cuda", cfg, dev)
+    return be, chunks, en, tt
+
+
+@pytest.mark.parametrize("policy", ALL_POLICIES)
+@pytest.mark.parametrize("promote", [True, False])
+@pytest.mark.parametrize("demote", [True, False])
+@pytest.mark.parametrize("ttl", [False, True], ids=["plain", "ttl"])
+def test_replay_hier_kernel_matches_plain(cuda, policy, promote, demote, ttl):
+    """Kernel 4 == hierarchy.replay_l1_over_l2: per-chunk hits and
+    evictions and both tiers, exactly."""
+    cfg = KWayConfig(num_sets=16, ways=4, policy=policy)
+    hc = hierarchy.HierarchyConfig(l1_sets=4, l1_ways=4, promote=promote,
+                                   demote=demote)
+    be, chunks, en, tt = _hier_run(cfg, cuda, 500, int(policy), ttl)
+    krp.reset_trace_counts()
+    h1, e1, s1, _ = be.replay(be.init(ttl=ttl), chunks, en, hierarchy=hc,
+                              ttls=tt)
+    torch.cuda.synchronize()
+    assert krp.launches("hier") == 1
+    st0 = hierarchy.make_hier(cfg, hc, device="cpu", ttl=ttl)
+    h2, e2, s2, _ = hierarchy.replay_l1_over_l2(cfg, hc, st0, chunks, en,
+                                                ttls=tt)
+    _eq(h1, h2, "per-chunk hits")
+    _eq(e1, e2, "per-chunk evictions")
+    _assert_states_equal(s1.l1, s2.l1, "L1")
+    _assert_states_equal(s1.l2, s2.l2, "L2")
+    assert int(e1.sum()) > 0
+
+
+@pytest.mark.parametrize("policy", ALL_POLICIES)
+def test_replay_hier_kernel_wide_rows(cuda, policy):
+    """Rows wider than one warp (each thread owns several ways), resumed
+    from a filled hierarchy."""
+    cfg = KWayConfig(num_sets=4, ways=40, policy=policy)
+    hc = hierarchy.HierarchyConfig(l1_sets=2, l1_ways=48)
+    be, chunks, en, _ = _hier_run(cfg, cuda, 1500, 9, False)
+    half = chunks.shape[0] // 2
+    _, _, st, _ = be.replay(be.init(), chunks[:half], en[:half],
+                            hierarchy=hc)
+    h1, e1, s1, _ = be.replay(st, chunks[half:], en[half:], hierarchy=hc)
+    cpu = hierarchy.HierState(
+        l1=kway.state_from_numpy(kway.state_to_numpy(st.l1), device="cpu"),
+        l2=kway.state_from_numpy(kway.state_to_numpy(st.l2), device="cpu"))
+    h2, e2, s2, _ = hierarchy.replay_l1_over_l2(cfg, hc, cpu, chunks[half:],
+                                                en[half:])
+    _eq(h1, h2, "per-chunk hits")
+    _eq(e1, e2, "per-chunk evictions")
+    _assert_states_equal(s1.l1, s2.l1, "L1")
+    _assert_states_equal(s1.l2, s2.l2, "L2")
+
+
+@pytest.mark.parametrize("seed", [0x1234, 0x7A11, 0x7FFFFFFF])
+def test_replay_hier_kernel_routes_with_the_config_seed(cuda, seed):
+    """Kernel 4 hashes keys to their L1 (salted seed) and L2 sets itself:
+    equal to the plain version under seeds other than the default."""
+    cfg = KWayConfig(num_sets=16, ways=4, policy=Policy.LRU, seed=seed)
+    hc = hierarchy.HierarchyConfig(l1_sets=4, l1_ways=4)
+    be, chunks, en, _ = _hier_run(cfg, cuda, 500, 3, False)
+    h1, e1, s1, _ = be.replay(be.init(), chunks, en, hierarchy=hc)
+    st0 = hierarchy.make_hier(cfg, hc, device="cpu")
+    h2, e2, s2, _ = hierarchy.replay_l1_over_l2(cfg, hc, st0, chunks, en)
+    _eq(h1, h2, "per-chunk hits")
+    _eq(e1, e2, "per-chunk evictions")
+    _assert_states_equal(s1.l1, s2.l1, "L1")
+    _assert_states_equal(s1.l2, s2.l2, "L2")

@@ -3,7 +3,8 @@
   * entry points run on the card unless asked for the CPU: without a card
     (the test hides any) they raise, naming the ``device="cpu"`` option;
   * options whose modules are not ported yet raise ``ValueError`` naming
-    the ROADMAP item;
+    the ROADMAP item, and the option pairs the reference refuses raise
+    ``ValueError`` too;
   * neither ``src/repro_torch`` nor ``chip_smoke.py`` imports JAX or any
     module of ``repro`` (checked in a subprocess and in the sources);
   * ``chip_smoke.py`` fails, and prints no result, without a card.
@@ -17,8 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import simulate
+from repro_torch.core import admission, simulate
 from repro_torch.core.backend import make_backend
+from repro_torch.core.hierarchy import HierarchyConfig
 from repro_torch.core.kway import KWayConfig
 
 torch.set_num_threads(1)
@@ -49,28 +51,59 @@ def test_simconfig_default_device_is_the_card(no_card):
     assert simulate.SimConfig(CFG, device="cpu").backend == "cuda"
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(shards=2), "Queue A item 8"),
-    (dict(hierarchy=object()), "Queue B item 4"),
+TL = admission.for_capacity(32)
+HIER = HierarchyConfig(l1_sets=2, l1_ways=2)
+
+
+@pytest.mark.parametrize("sim_kw,kwargs,match", [
+    pytest.param({}, dict(shards=2), "Queue A item 8",
+                 id="kwargs0-Queue A item 8"),
+    pytest.param(dict(two_phase=True), dict(hierarchy=HIER), "two_phase",
+                 id="kwargs1-Queue B item 4"),
 ])
-def test_unported_options_refused(kwargs, item):
-    sim = simulate.SimConfig(CFG, device="cpu")
-    with pytest.raises(ValueError, match=item):
+def test_unported_options_refused(sim_kw, kwargs, match):
+    """``shards > 1`` is the one option still to port; the hierarchy is
+    ported, and refuses ``two_phase`` as the reference does."""
+    sim = simulate.SimConfig(CFG, device="cpu", **sim_kw)
+    with pytest.raises(ValueError, match=match):
         simulate.replay_batched(sim, np.arange(10, dtype=np.uint32), **kwargs)
 
 
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
 def test_tinylfu_refused(backend):
-    sim = simulate.SimConfig(CFG, tinylfu=object(), backend=backend,
-                             device="cpu")
+    """TinyLFU is ported; it refuses TTLs and the hierarchy, as the
+    reference does, on the entry point and on the backend."""
+    sim = simulate.SimConfig(CFG, tinylfu=TL, backend=backend, device="cpu")
+    tr = np.arange(10, dtype=np.uint32)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        simulate.replay_batched(sim, tr, ttls=np.ones(10, np.int32))
+    with pytest.raises(ValueError, match="TinyLFU"):
+        simulate.replay_batched(sim, tr, hierarchy=HIER)
+    be = make_backend(backend, CFG, device="cpu")
+    chunks, en = tr.reshape(2, 5), np.ones((2, 5), bool)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        be.replay(be.init(), chunks, en, tinylfu=TL,
+                  ttls=np.ones((2, 5), np.int32))
+    with pytest.raises(ValueError, match="TinyLFU"):
+        be.replay(be.init(), chunks, en, tinylfu=TL, hierarchy=HIER)
+    assert 0 <= simulate.replay(sim, tr) <= 1
+
+
+def test_ref_backend_refuses_tinylfu_and_hierarchy():
+    sim = simulate.SimConfig(CFG, tinylfu=TL, backend="ref", device="cpu")
     tr = np.arange(10, dtype=np.uint32)
     for run in (simulate.replay, simulate.replay_batched):
-        with pytest.raises(ValueError, match="core/admission.py"):
+        with pytest.raises(ValueError, match="ref backend"):
             run(sim, tr)
-    be = make_backend(backend, CFG, device="cpu")
-    with pytest.raises(ValueError, match="core/admission.py"):
-        be.replay(be.init(), tr.reshape(2, 5), np.ones((2, 5), bool),
-                  tinylfu=object())
+    sim = simulate.SimConfig(CFG, backend="ref", device="cpu")
+    with pytest.raises(ValueError, match="flat-only"):
+        simulate.replay_batched(sim, tr, hierarchy=HIER)
+    be = make_backend("ref", CFG, device="cpu")
+    chunks, en = tr.reshape(2, 5), np.ones((2, 5), bool)
+    with pytest.raises(ValueError, match="ref backend"):
+        be.replay(be.init(), chunks, en, tinylfu=TL)
+    with pytest.raises(ValueError, match="flat-only"):
+        be.replay(be.init(), chunks, en, hierarchy=HIER)
 
 
 def test_replay_refusals():
@@ -145,7 +178,8 @@ class _StubLib:
 
 
 @pytest.mark.parametrize("module,source", [
-    ("kway_probe", "kway_probe.cu"), ("replay", "replay.cu")])
+    ("kway_probe", "kway_probe.cu"), ("replay", "replay.cu"),
+    ("replay", "replay_hier.cu")])
 def test_ctypes_declarations_match_c_entries(monkeypatch, module, source):
     """Every C entry's parameter list (void* / int) equals the argtypes its
     wrapper declares; a mismatch would only show on the card."""
@@ -155,13 +189,14 @@ def test_ctypes_declarations_match_c_entries(monkeypatch, module, source):
 
     from repro_torch.kernels import _build
     mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    loader = getattr(mod, {"replay_hier.cu": "_hier_lib"}.get(source, "_lib"))
     stub = _StubLib()
     monkeypatch.setattr(_build, "library", lambda name: stub)
-    mod._lib.cache_clear()
+    loader.cache_clear()
     try:
-        mod._lib()
+        loader()
     finally:
-        mod._lib.cache_clear()
+        loader.cache_clear()
     with open(os.path.join(PORT, "kernels", "csrc", source)) as f:
         src = f.read()
     entries = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)
