@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, then, at the full-size configuration of the slice (a 2^20-entry
-8-way cache, 4 Mi zipf requests, batches of 1024; TinyLFU sized by
-``for_capacity(2^20)``; an L1 of 512 x 16 over that cache):
+nvcc, then, at the full-size configuration of the replay slices (a
+2^20-entry 8-way cache, 4 Mi zipf requests, batches of 1024; TinyLFU sized
+by ``for_capacity(2^20)``; an L1 of 512 x 16 over that cache) and of the
+serving slice:
 
   1. prints the card, its power limit and ptxas' register/shared-memory
      report of every kernel;
@@ -41,12 +42,25 @@ nvcc, then, at the full-size configuration of the slice (a 2^20-entry
      the kernels' own device time from torch.profiler; and the requests/s
      of the resident, chunked and hierarchical replays.  Kernel 4's entry is
      timed and bounded on the inputs of its check in 5, where its plain
-     version ran too; its whole-trace run is reported under ``full_*``.
+     version ran too; its whole-trace run is reported under ``full_*``;
+  9. serving, at deepseek-7b's full width (random bf16 weights from seed
+     0; engine and traffic in ``SERVE_*``): a smoke-sized prefill and paged
+     decode on the card agree with the CPU; 16 requests through
+     ``Engine.submit`` / ``Engine.run`` on the ``cuda`` backend with the
+     launch counters set to 0 just before (fails unless kernel 5 ran 30 x
+     decode_steps times and kernel 1 ran), every layer's kernel-5 inputs of
+     one decode step captured; the ``torch`` backend's run equal in stats,
+     pages, prefix hits and tokens; one wave under torch.profiler; the
+     serving CLI once;
+ 10. kernel 5 (``paged_attention``) against its plain version on the
+     captured inputs (bf16 at 3e-2, float32 at 2e-5 with TF32 off) and on
+     a GQA + softcap case, then timed beside its bound and
+     ``scaled_dot_product_attention`` on the same K/V pre-gathered.
 
 Any mismatch or failure exits non-zero; no phase's failure is caught.  The
-last two lines are the per-kernel JSON summary and the device JSON of the
-one card the script drives.  Needs one CUDA card; without one it exits with
-code 2 and prints no result.
+last two lines are the per-kernel JSON summary (6 entries) and the device
+JSON of the one card the script drives.  Needs one CUDA card; without one
+it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -85,6 +99,29 @@ HIER_CHECK_N = 2**14
 HIER_TTL_L1_SETS, HIER_TTL_N = 64, 2**16
 #: H100 SXM memory rate (bytes/s), the bound of every kernel here
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM dense bf16 tensor-core rate (FLOP/s), kernel 5's operations bound
+BF16_FLOP_PER_S = 989e12
+#: serving slice: deepseek-7b at full width (random bf16 weights made on the
+#: card from seed 0), the engine of the chip configuration and its traffic
+#: (a shared 384-token prefix plus a 16-128-token tail per request)
+SERVE_ARCH = "deepseek-7b"
+SERVE_ENGINE = dict(page=16, num_sets=8, ways=8, max_batch=8, max_seq=1024,
+                    max_prompt=512, private_pages=960)
+SERVE_REQUESTS, SERVE_SHARED, SERVE_TAIL, SERVE_MAX_NEW = 16, 384, (16, 128), 32
+#: decode step whose every layer's kernel-5 inputs are captured: the last
+#: step of the first wave (8 sequences, each its prompt + 32 tokens long)
+SERVE_CAPTURE_STEP = 31
+#: the profiled serving run: one wave of max_batch requests, fewer new
+#: tokens (the profiler's event processing grows with the op count)
+SERVE_PROFILE_MAX_NEW = 8
+#: kernel 5's GQA + softcap case on random pools: gemma2-2b's heads
+GQA_CASE = dict(b=8, kvh=4, g=2, d=256, softcap=50.0, pages=1024, page=16,
+                pps=64)
+#: kernel 5's tolerances against its plain version (the reference's own)
+PA_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
+#: and, in bf16, the kernel and the plain version both compute in float32
+#: and round once, so they may differ by about two bf16 ulps at most
+PA_BF16_ROUNDING = dict(atol=1e-3, rtol=8e-3)
 
 
 def card_line() -> str:
@@ -188,11 +225,22 @@ def profiled_device_ms(fn, reps: int, names,
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
-    for ev in prof.key_averages():
-        if any(n in ev.key for n in names):
-            total_us += getattr(ev, "device_time_total", 0.0)
+    total_us = sum(t for t, key in device_rows(prof)
+                   if any(n in key for n in names))
     return total_us / 1e3 / reps if total_us > 0 else None
+
+
+def device_rows(prof) -> list:
+    """(self device us, name) of the device activity in ``prof``: the rows
+    of ``key_averages()`` whose device type is CUDA (kernels, copies,
+    sets), as the profiler's own table footer sums them.  Under kineto a
+    CPU op's row also carries the device time of the kernels it launched,
+    which have rows of their own, so adding every row would count those
+    kernels twice."""
+    from torch.autograd import DeviceType
+    return [(ev.self_device_time_total, ev.key) for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)]
 
 
 def chunked_busy_share(card, be, state, chunks, enabled):
@@ -206,8 +254,7 @@ def chunked_busy_share(card, be, state, chunks, enabled):
         be.replay_scan(state, chunks, enabled)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    ops = [(getattr(ev, "self_device_time_total", 0.0), ev.key)
-           for ev in prof.key_averages()]
+    ops = device_rows(prof)
     busy_us = sum(t for t, _ in ops)
     top = ", ".join(f"{k[:40]} {t / 1e3:.3f} ms" for t, k in
                     sorted(ops, reverse=True)[:5] if t > 0)
@@ -589,17 +636,19 @@ def phase_slice_records(card, dev):
 
 
 KERNELS = ("kway_probe", "kway_fused_probe", "replay_resident",
-           "replay_resident_tinylfu", "replay_hierarchical")
+           "replay_resident_tinylfu", "replay_hierarchical", "paged_attention")
 
 
 def launch_counts() -> dict:
     from repro_torch.kernels import kway_probe as kp
+    from repro_torch.kernels import paged_attention as kpa
     from repro_torch.kernels import replay as krp
     return {"kway_probe": kp.LAUNCHES["kway_probe"],
             "kway_fused_probe": kp.LAUNCHES["kway_fused_probe"],
             "replay_resident": krp.launches("flat"),
             "replay_resident_tinylfu": krp.launches("tinylfu"),
-            "replay_hierarchical": krp.launches("hier")}
+            "replay_hierarchical": krp.launches("hier"),
+            "paged_attention": kpa.LAUNCHES["paged_attention"]}
 
 
 def check_launches(card, path, kernels, results):
@@ -617,9 +666,11 @@ def check_launches(card, path, kernels, results):
 
 def reset_launch_counts():
     from repro_torch.kernels import kway_probe as kp
+    from repro_torch.kernels import paged_attention as kpa
     from repro_torch.kernels import replay as krp
     for k in kp.LAUNCHES:
         kp.LAUNCHES[k] = 0
+    kpa.LAUNCHES["paged_attention"] = 0
     krp.reset_trace_counts()
 
 
@@ -888,6 +939,369 @@ def phase_timing(card, trace, dev, results):
               f"library_ms: none")
 
 
+# ---------------------------------------------------------------------------
+# serving slice: the paged engine at deepseek-7b's width and kernel 5
+# ---------------------------------------------------------------------------
+
+def serve_config():
+    """The model of the serving phases (a hook for CPU rehearsals)."""
+    from repro_torch import configs
+    return configs.get(SERVE_ARCH).config
+
+
+def say_serve_config(card):
+    cfg = serve_config()
+    e = SERVE_ENGINE
+    pages = e["num_sets"] * e["ways"] + e["private_pages"]
+    pool = cfg.num_layers * cfg.num_kv_heads * pages * e["page"] * cfg.hd * 2
+    say(card, f"serving config: {cfg.name} at full width, {cfg.num_layers} "
+              f"layers, d {cfg.d_model}, {cfg.num_heads} heads x {cfg.hd} "
+              f"({cfg.num_kv_heads} KV heads), d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size}: {cfg.param_count()} bf16 parameters "
+              f"({2 * cfg.param_count()} B), random from torch.Generator "
+              f"seed 0")
+    say(card, f"serving config: EngineConfig({', '.join(f'{k}={v}' for k, v in e.items())}, "
+              f"policy=LRU): {e['num_sets'] * e['ways']} shared + "
+              f"{e['private_pages']} private = {pages} pages; K and V pools "
+              f"each [{cfg.num_layers}, {cfg.num_kv_heads}, {pages}, "
+              f"{e['page']}, {cfg.hd}] bf16 = {pool} B")
+    say(card, f"serving config: {SERVE_REQUESTS} requests, a shared "
+              f"{SERVE_SHARED}-token prefix + a {SERVE_TAIL[0]}-"
+              f"{SERVE_TAIL[1]}-token tail each (default_rng(0)), max_new "
+              f"{SERVE_MAX_NEW}, greedy; backends cuda then torch")
+
+
+def serve_traffic(vocab: int) -> list:
+    """SERVE_REQUESTS prompts: one shared SERVE_SHARED-token prefix plus a
+    tail of SERVE_TAIL tokens each, from default_rng(0) over [2, vocab-1)."""
+    rng = np.random.default_rng(0)
+    shared = rng.integers(2, vocab - 1, SERVE_SHARED)
+    lo, hi = SERVE_TAIL
+    return [np.concatenate([shared, rng.integers(
+        2, vocab - 1, int(rng.integers(lo, hi + 1)))])
+        for _ in range(SERVE_REQUESTS)]
+
+
+class CaptureStep:
+    """Stands in for ``ops.attend_paged`` while the engine runs: passes every
+    call on to the kernel and keeps clones of the inputs of every layer's
+    call in decode step ``step``."""
+
+    def __init__(self, layers: int, step: int):
+        from repro_torch.kernels import ops
+        self.ops, self.kernel = ops, ops.attend_paged
+        self.layers, self.step, self.calls, self.inputs = layers, step, 0, []
+
+    def __enter__(self):
+        self.ops.attend_paged = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.attend_paged = self.kernel
+
+    def __call__(self, q, k_pages, v_pages, page_table, seq_lens, **kw):
+        if self.calls // self.layers == self.step:
+            self.inputs.append(tuple(t.clone() for t in (
+                q, k_pages, v_pages, page_table, seq_lens)) + (kw,))
+        self.calls += 1
+        return self.kernel(q, k_pages, v_pages, page_table, seq_lens, **kw)
+
+
+def drive_engine(cfg, model, backend, prompts, dev, max_new=None):
+    """Submit the prompts (``max_new`` None: SERVE_MAX_NEW), ``Engine.run``
+    on ``backend`` -> (stats, {rid: (tokens, pages, prefix_hits)}, host
+    seconds of run, hit ratio)."""
+    from repro_torch.core.policies import Policy
+    from repro_torch.serve.engine import Engine, EngineConfig
+    eng = Engine(cfg, model, EngineConfig(policy=Policy.LRU, backend=backend,
+                                          **SERVE_ENGINE), device=dev)
+    for p in prompts:
+        eng.submit(p, max_new=max_new or SERVE_MAX_NEW)
+    sync(dev)
+    t0 = time.perf_counter()
+    fin = eng.run()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    reqs = {rid: (r.generated, r.pages, r.prefix_hits)
+            for rid, r in fin.items()}
+    return eng.stats, reqs, wall, eng.hit_ratio()
+
+
+def serve_busy_share(card, cfg, model, prompts, dev):
+    """Where the serving time goes: one wave (``max_batch`` requests,
+    SERVE_PROFILE_MAX_NEW new tokens each) on the ``cuda`` backend under
+    torch.profiler: host wall, device busy share, the costliest device ops
+    and the costliest host ops (self CPU time)."""
+    from torch.profiler import ProfilerActivity, profile
+    wave = prompts[:SERVE_ENGINE["max_batch"]]
+    drive_engine(cfg, model, "cuda", wave, dev, SERVE_PROFILE_MAX_NEW)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st, reqs, wall, _ = drive_engine(cfg, model, "cuda", wave, dev,
+                                         SERVE_PROFILE_MAX_NEW)
+    t0 = time.perf_counter()
+    dev_ops = device_rows(prof)
+    host_ops = [(ev.self_cpu_time_total, ev.key)
+                for ev in prof.key_averages()]
+    busy_us = sum(t for t, _ in dev_ops)
+
+    def top(ops, n):
+        return ", ".join(f"{k[:48]} {t / 1e3:.1f} ms" for t, k in
+                         sorted(ops, reverse=True)[:n] if t > 0)
+
+    say(card, f"serving, {len(wave)} requests ({st['prefills']} prefills, "
+              f"{st['decode_steps']} decode steps, {SERVE_PROFILE_MAX_NEW} "
+              f"new tokens per request) under torch.profiler: wall "
+              f"{wall * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+              f"({busy_us / 1e3 / (wall * 1e3):.1%}); top device ops: "
+              f"{top(dev_ops, 8)}; top host ops (self CPU): "
+              f"{top(host_ops, 8)} (profile read in "
+              f"{time.perf_counter() - t0:.1f} s)")
+
+
+def phase_serve_agreement(card, dev):
+    """A small input on the card agrees with the CPU: deepseek-7b's smoke
+    config, one padded prefill and one paged decode step (kernel 5 on the
+    card, its plain version on the CPU) from the same pools, logits within
+    the bf16 tolerance 3e-2."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve import paged_model as pm
+
+    cfg = configs.get(SERVE_ARCH).smoke
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(1)
+    toks = np.zeros((2, 32), np.int32)
+    lengths = np.array([29, 11], np.int32)
+    for i, n in enumerate(lengths):
+        toks[i, :n] = rng.integers(2, cfg.vocab_size - 1, n)
+    shape = (cfg.num_layers, cfg.num_kv_heads, 12, 8, cfg.hd)
+    pools = torch.from_numpy(rng.standard_normal((2,) + shape).astype(
+        np.float32)).bfloat16()
+    pt = torch.arange(12, dtype=torch.int32).reshape(2, 6)
+    out = []
+    for d in (cpu, dev):
+        model = lm.init_params(cfg, seed=0, device=cpu).to(d)
+        logits, _, _ = pm.prefill_padded(cfg, model,
+                                         torch.from_numpy(toks).to(d),
+                                         torch.from_numpy(lengths).to(d))
+        pk, pv = (t.clone().to(d) for t in pools)
+        dl, _, _ = pm.decode_paged(
+            cfg, model, torch.tensor([5, 7], dtype=torch.int32, device=d),
+            torch.from_numpy(lengths).to(d), pk, pv, pt.to(d),
+            torch.ones(2, dtype=torch.bool, device=d))
+        out.append((logits.cpu(), dl.cpu()))
+    err = 0.0
+    for a, b in zip(*out):
+        if not torch.isfinite(b).all():
+            raise AssertionError("non-finite logits on the card")
+        torch.testing.assert_close(b, a, atol=3e-2, rtol=3e-2)
+        err = max(err, float((a - b).abs().max()))
+    say(card, f"small input agrees: {cfg.name} prefill and paged decode "
+              f"logits on the card vs CPU, max abs err {err:.3g} (tol 3e-2)")
+
+
+def phase_serve_path(card, dev, results, serve):
+    """The serving path at full width through ``Engine.submit`` /
+    ``Engine.run`` on the ``cuda`` backend, counted; every layer's kernel-5
+    inputs of decode step SERVE_CAPTURE_STEP captured for phases below; the
+    same run on the ``torch`` backend, exactly equal; the CLI once."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import lm
+
+    cfg = serve_config()
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, seed=0, device=dev)
+    sync(dev)
+    params = list(model.parameters())
+    say(card, f"serving model {cfg.name}: {sum(p.numel() for p in params)} "
+              f"parameters ({sum(p.numel() * p.element_size() for p in params)}"
+              f" B) made on the card in {time.perf_counter() - t0:.1f} s")
+    prompts = serve_traffic(cfg.vocab_size)
+    reset_launch_counts()
+    with CaptureStep(cfg.num_layers, SERVE_CAPTURE_STEP) as cap:
+        st, reqs, wall, hr = drive_engine(cfg, model, "cuda", prompts, dev)
+    counts = launch_counts()
+    want = cfg.num_layers * st["decode_steps"]
+    if counts["paged_attention"] != want:
+        raise AssertionError(f"paged_attention launched "
+                             f"{counts['paged_attention']} times, not "
+                             f"{cfg.num_layers} x {st['decode_steps']}")
+    check_launches(card, "serving", ("kway_probe", "paged_attention"),
+                   results)
+    if len(cap.inputs) != cfg.num_layers:
+        raise AssertionError(f"captured {len(cap.inputs)} layers of decode "
+                             f"step {SERVE_CAPTURE_STEP}")
+    vp = lm.padded_vocab(cfg)
+    for rid, (toks, pages, _) in reqs.items():
+        if len(toks) != SERVE_MAX_NEW + 1 or not all(0 <= t < vp
+                                                    for t in toks):
+            raise AssertionError(f"request {rid}: tokens {toks}")
+    if len(reqs) != SERVE_REQUESTS or st["prefills"] != SERVE_REQUESTS:
+        raise AssertionError(f"served {len(reqs)} requests, stats {st}")
+    n_tok = sum(len(t) for t, _, _ in reqs.values())
+    serve.update(inputs=cap.inputs, stats=st)
+    results["paged_attention"].update(
+        serve_tokens=n_tok, serve_s=wall, serve_tokens_per_s=n_tok / wall,
+        serve_hit_ratio=hr, serve_decode_steps=st["decode_steps"])
+    say(card, f"main path serving (cuda backend): {len(reqs)} requests, "
+              f"{n_tok} tokens in {wall:.3f} s host wall ({n_tok / wall:.1f} "
+              f"tokens/s), prefix-cache hit ratio {hr!r}, stats {st}")
+    st2, reqs2, wall2, _ = drive_engine(cfg, model, "torch", prompts, dev)
+    if (st2, reqs2) != (st, reqs):
+        bad = [rid for rid in reqs if reqs[rid] != reqs2.get(rid)]
+        raise AssertionError(f"torch backend run differs: stats {st2} vs "
+                             f"{st}; requests {bad}")
+    say(card, f"torch backend run == cuda backend run: stats, pages, prefix "
+              f"hits and tokens of all {len(reqs)} requests ({wall2:.3f} s "
+              f"host wall)")
+    serve_busy_share(card, cfg, model, prompts, dev)
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve_cli.main(["--backend", "cuda", "--requests", "16"])
+    say(card, f"repro_torch.launch.serve.main (smoke config, cuda backend) "
+              f"ran in {time.perf_counter() - t0:.1f} s")
+
+
+def _pa_pairs(args, softcap_kw):
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.kernels import ref as kref
+    got = kpa.paged_attention(*args, **softcap_kw)
+    want = kref.paged_attention_ref(*args, **softcap_kw)
+    if not torch.isfinite(got).all():
+        raise AssertionError("kernel 5 gave non-finite values")
+    tol = PA_TOL[got.dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if got.dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **PA_BF16_ROUNDING)
+    return float((got.float() - want.float()).abs().max())
+
+
+def phase_paged_attention_kernel(card, dev, results, serve):
+    """Kernel 5 against its plain version on the card: every layer of the
+    captured full-width decode step in bf16 (3e-2, and within two bf16
+    ulps) and as float32 copies (2e-5, TF32 off), and a GQA + softcap case
+    on random pools."""
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        raise AssertionError("TF32 must be off for the float32 comparison")
+    err_bf = err_f32 = 0.0
+    for q, kp, vp, pt, sl, kw in serve["inputs"]:
+        err_bf = max(err_bf, _pa_pairs((q, kp, vp, pt, sl), kw))
+        err_f32 = max(err_f32, _pa_pairs(
+            (q.float(), kp.float(), vp.float(), pt, sl), kw))
+    q, kp, _, pt, sl, _ = serve["inputs"][0]
+    say(card, f"kernel 5 == plain on the captured decode step "
+              f"{SERVE_CAPTURE_STEP} ({len(serve['inputs'])} layers, q {tuple(q.shape)}, pools "
+              f"{tuple(kp.shape)}, page table {tuple(pt.shape)}, seq_lens "
+              f"{sl.tolist()}): bf16 max abs err {err_bf:.3g} (tol 3e-2, and "
+              f"atol 1e-3 + rtol 8e-3), "
+              f"float32 {err_f32:.3g} (tol 2e-5)")
+    c = GQA_CASE
+    rng = np.random.default_rng(2)
+    h = c["kvh"] * c["g"]
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    qg = rand(c["b"], h, c["d"])
+    kg = rand(c["kvh"], c["pages"], c["page"], c["d"])
+    vg = rand(c["kvh"], c["pages"], c["page"], c["d"])
+    ptg = torch.from_numpy(rng.integers(0, c["pages"], (c["b"], c["pps"]))
+                           .astype(np.int32)).to(dev)
+    slg = torch.from_numpy(rng.integers(1, c["pps"] * c["page"] + 1, c["b"])
+                           .astype(np.int32)).to(dev)
+    kw = dict(softcap=c["softcap"])
+    gqa_f32 = _pa_pairs((qg, kg, vg, ptg, slg), kw)
+    gqa_bf = _pa_pairs(tuple(t.bfloat16() for t in (qg, kg, vg))
+                       + (ptg, slg), kw)
+    say(card, f"kernel 5 == plain, GQA G={c['g']} D={c['d']} softcap "
+              f"{c['softcap']} (gemma2-2b's heads), B={c['b']}, random pools:"
+              f" float32 max abs err {gqa_f32:.3g} (tol 2e-5), bf16 "
+              f"{gqa_bf:.3g} (tol 3e-2, and atol 1e-3 + rtol 8e-3)")
+    results["paged_attention"].update(
+        max_abs_err=err_bf, tol=3e-2, max_abs_err_f32=err_f32,
+        gqa_max_abs_err_f32=gqa_f32, gqa_max_abs_err=gqa_bf)
+
+
+def pa_bound(q, k_pages, page_table, seq_lens):
+    """(bound ms, bound_by, bytes) of one kernel-5 call: each valid K/V row
+    read once, q read and the output written once, the page-table entries
+    of the pages in use and the lengths read; operations 4 x H x D per
+    (sequence, position), at the bf16 tensor-core rate."""
+    b, h, d = q.shape
+    kvh, _, page, _ = k_pages.shape
+    lens = seq_lens.long().clamp(max=page_table.shape[1] * page)
+    el = q.element_size()
+    n_pages = int(((lens + page - 1) // page).sum())
+    nbytes = (2 * kvh * d * el * int(lens.sum()) + 2 * b * h * d * el
+              + 4 * n_pages + 4 * b)
+    ops = 4 * h * d * int(lens.sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
+
+
+def phase_paged_attention_timing(card, dev, results, serve):
+    """Kernel 5 on layer 0's captured full-width inputs: CUDA events around
+    the wrapper, device time by torch.profiler, the plain version, the
+    bound, and scaled_dot_product_attention on the same K/V gathered into
+    a contiguous [B, H, T, D] beforehand (a yardstick: it excludes the
+    gather, and the port never calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.kernels import ref as kref
+
+    q, kp, vp, pt, sl, kw = serve["inputs"][0]
+    run = lambda: kpa.paged_attention(q, kp, vp, pt, sl, **kw)  # noqa: E731
+    ms = cuda_ms(run, 200)
+    dev_ms = profiled_device_ms(run, 50, ("paged_attention_kernel",))
+    plain = cuda_ms(lambda: kref.paged_attention_ref(q, kp, vp, pt, sl, **kw),
+                    20)
+    bound, by, nbytes = pa_bound(q, kp, pt, sl)
+    b, h, d = q.shape
+    kvh, _, page, _ = kp.shape
+    lens = sl.long()
+    t = int((lens.max() + page - 1) // page) * page
+    tab = pt[:, :t // page].long()
+
+    def gather(pool):
+        g = pool[:, tab].reshape(kvh, b, t, d).transpose(0, 1)
+        return g.repeat_interleave(h // kvh, dim=1).contiguous()
+
+    kc, vc = gather(kp), gather(vp)
+    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None])[:, None,
+                                                                  None, :]
+    qs = q[:, :, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qs, kc, vc, attn_mask=mask)
+    lib = cuda_ms(sdpa, 200)
+    lib_err = float((sdpa()[:, :, 0].float() - run().float()).abs().max())
+    results["paged_attention"].update(
+        ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound,
+        bound_by=by, library_ms=lib)
+    say(card, f"paged_attention layer 0 of decode step {SERVE_CAPTURE_STEP} "
+              f"(B={b} H={h} KVH={kvh} D={d} page={page}, {int(lens.sum())} "
+              f"tokens): {ms:.4f} ms per wrapper call (CUDA events, mean of "
+              f"200), kernel device time {fmt_ms(dev_ms)} (torch.profiler), "
+              f"bound {bound:.6f} ms by {by} ({nbytes} B), plain {plain:.4f} "
+              f"ms; library_ms {lib:.4f} "
+              f"(scaled_dot_product_attention on K/V gathered beforehand "
+              f"into [B, H, {t}, D], gather excluded; max abs diff to the "
+              f"kernel {lib_err:.3g})")
+    steps = serve["stats"]["decode_steps"]
+    r = results["paged_attention"]
+    say(card, f"serving: {r['serve_tokens_per_s']:.1f} tokens/s, "
+              f"{steps} decode steps x {len(serve['inputs'])} layers = "
+              f"{r['launches']} kernel-5 launches; kernel 5 at "
+              f"{ms:.4f} ms would be {ms * r['launches'] / 1e3:.3f} s of the "
+              f"{r['serve_s']:.3f} s run")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -929,6 +1343,7 @@ def main() -> int:
               f"and demote on, policies {HIER_POLICIES}; TTL run L1 "
               f"{HIER_TTL_L1_SETS}x{HIER_L1_WAYS} over L2 {TTL_SETS}x{WAYS}, "
               f"ttl_churn {HIER_TTL_N} requests")
+    say_serve_config(card)
     t0 = time.perf_counter()
     trace = traces.generate(TRACE["family"], TRACE["n"], seed=TRACE["seed"],
                             catalog=TRACE["catalog"], alpha=TRACE["alpha"])
@@ -953,7 +1368,12 @@ def main() -> int:
         "replay_hierarchical": dict(
             source="src/repro_torch/kernels/csrc/replay_hier.cu",
             replaces="src/repro/kernels/replay.py:916"),
+        "paged_attention": dict(
+            source="src/repro_torch/kernels/csrc/paged_attention.cu",
+            replaces="src/repro/kernels/paged_attention.py:103",
+            exact="within tolerance"),
     }
+    serve = {}
     for phase, args in (
             (phase_probe_kernels, (trace, dev, results)),
             (phase_replay_kernel, (trace, ttl_trace, dev, results)),
@@ -964,7 +1384,11 @@ def main() -> int:
             (phase_main_path, (trace, ttl_trace, dev, results)),
             (phase_main_path_tinylfu, (trace, dev, results)),
             (phase_main_path_hier, (trace, ttl_trace, dev, results)),
-            (phase_timing, (trace, dev, results))):
+            (phase_timing, (trace, dev, results)),
+            (phase_serve_agreement, (dev,)),
+            (phase_serve_path, (dev, results, serve)),
+            (phase_paged_attention_kernel, (dev, results, serve)),
+            (phase_paged_attention_timing, (dev, results, serve))):
         t0 = time.perf_counter()
         phase(card, *args)
         say(card, f"{phase.__name__} done in {time.perf_counter() - t0:.1f} s")
@@ -974,13 +1398,15 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": r["source"],
             "replaces": r["replaces"], "launches": r["launches"],
-            "max_abs_err": r["max_abs_err"], "exact": r["max_abs_err"] == 0,
+            "max_abs_err": r["max_abs_err"],
+            "exact": r.get("exact", r["max_abs_err"] == 0),
             "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": "bytes",
-            "library_ms": None,
+            "bound_ms": r["bound_ms"], "bound_by": r.get("bound_by", "bytes"),
+            "library_ms": r.get("library_ms"),
             **{k: v for k, v in r.items()
-               if k == "requests" or k.startswith("full_")}})
+               if k in ("requests", "tol") or k.startswith(
+                   ("full_", "serve_", "gqa_", "max_abs_err_"))}})
     print("kernels " + ", ".join(
         f"{k['name']}: launches={k['launches']} exact={k['exact']} "
         f"ms={k['ms']:.4f}" for k in kernels) + f" [{card}]")

@@ -99,3 +99,47 @@ def hash_u32_int(key: int, seed: int) -> int:
     x ^= x >> 13
     x = x * _C2 & _M32
     return x ^ (x >> 16)
+
+
+# ---------------------------------------------------------------------------
+# prefix-chain block hashing (serve/engine.py content addressing)
+# ---------------------------------------------------------------------------
+
+#: FNV-1a fold constants for the per-block digest.
+_FNV_OFFSET = 2166136261
+_FNV_PRIME = 16777619
+#: Position salt multiplier (golden-ratio constant == xxhash PRIME32_1).
+_GOLDEN = 0x9E3779B1
+
+
+def _fmix32_np(x: np.ndarray) -> np.ndarray:
+    """murmur3 finalizer on uint32 numpy arrays (bit-identical to
+    ``_fmix32``)."""
+    x = x ^ (x >> np.uint32(16))
+    x = x * np.uint32(_C1)
+    x = x ^ (x >> np.uint32(13))
+    x = x * np.uint32(_C2)
+    return x ^ (x >> np.uint32(16))
+
+
+def prefix_block_hashes(tokens: np.ndarray, page: int) -> np.ndarray:
+    """Rolling prefix-chain hash per full block -> uint32 [len // page].
+
+    ``block_hash[i]`` covers ``tokens[0 : (i+1)*page]``, so a block only
+    matches when its whole prefix matches and a page hit guarantees
+    identical KV.  Each block's tokens are folded with FNV-1a, the digest is
+    mixed with its position, and the chain is the cumulative XOR.  The value
+    0xFFFFFFFF (the EMPTY key) is replaced by 1.
+    """
+    n = len(tokens) // page
+    if n == 0:
+        return np.empty(0, np.uint32)
+    blocks = np.asarray(tokens[: n * page], dtype=np.uint32).reshape(n, page)
+    h = np.full(n, np.uint32(_FNV_OFFSET), np.uint32)
+    with np.errstate(over="ignore"):
+        for j in range(page):
+            h = (h ^ blocks[:, j]) * np.uint32(_FNV_PRIME)
+        salt = np.arange(1, n + 1, dtype=np.uint32) * np.uint32(_GOLDEN)
+        out = np.bitwise_xor.accumulate(_fmix32_np(h ^ salt)).astype(np.uint32)
+    out[out == np.uint32(EMPTY_KEY)] = np.uint32(1)
+    return out

@@ -5,7 +5,9 @@
     replay     — kernel 3: a whole chunked trace in one launch, flat, TTL
                  or TinyLFU (csrc/replay.cu); kernel 4: the same through
                  the L1-over-L2 hierarchy (csrc/replay_hier.cu)
-    ops        — the wrappers the backends call
-    ref        — plain torch versions of kernels 1 and 2
+    paged_attention — kernel 5: one paged GQA decode step
+                 (csrc/paged_attention.cu)
+    ops        — the wrappers the backends and the serving model call
+    ref        — plain torch versions of kernels 1, 2 and 5
     _build     — nvcc build into kernels/.build/ and ctypes loading
 """

@@ -3,11 +3,12 @@
 Each ``csrc/<name>.cu`` compiles into its own shared library with a plain C
 interface (``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 -shared -Xcompiler -fPIC``; never ``--use_fast_math``: HYPERBOLIC's scores
-need IEEE division).  Libraries go to ``kernels/.build/`` (gitignored),
-named by a digest of every source and the flags, so an edited kernel is
-rebuilt.  On first use all sources compile at once, one ``nvcc`` each, and
-``ptxas -v`` reports (registers, shared memory, spills) are kept for
-``build_log``.  A failed build or load raises ``RuntimeError``.
+need IEEE division, paged attention IEEE exp and tanh).  Libraries go to
+``kernels/.build/`` (gitignored), named by a digest of every source and
+the flags, so an edited kernel is rebuilt.  On first use all sources
+compile at once, one ``nvcc`` each, and ``ptxas -v`` reports (registers,
+shared memory, spills) are kept for ``build_log``.  A failed build or
+load raises ``RuntimeError``.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / ".build"
-SOURCES = ("kway_probe", "replay", "replay_hier")
+SOURCES = ("kway_probe", "replay", "replay_hier", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -12,6 +12,7 @@ import torch
 from repro_torch.core import hashing, kway
 from repro_torch.core.kway import KWayConfig, KWayState
 from repro_torch.kernels import kway_probe as _kp
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import replay as _rp
 
 
@@ -102,3 +103,12 @@ def _chunk_tensors(chunks, enabled, ttls, dev):
     if ttls is not None:
         ttls = torch.as_tensor(ttls, dtype=torch.int32).to(dev)
     return qkeys, enabled, ttls
+
+
+def attend_paged(q, k_pages, v_pages, page_table, seq_lens, *, scale=None,
+                 softcap: float = 0.0):
+    """Paged GQA decode attention (kernel 5; see
+    ``kernels/paged_attention.py``): the kernel for CUDA tensors, the plain
+    version for CPU tensors, and any other device raises."""
+    return _pa.paged_attention(q, k_pages, v_pages, page_table, seq_lens,
+                               scale=scale, softcap=softcap)

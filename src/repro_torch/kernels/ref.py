@@ -1,9 +1,10 @@
-"""Plain torch versions of the probe kernels.
+"""Plain torch versions of the probe kernels and of paged attention.
 
 Counterpart of ``repro/kernels/ref.py``: each function computes exactly
-what its CUDA kernel computes (``kernels/csrc/kway_probe.cu``), with plain
-tensor ops.  The CPU tests use them, the ``cuda`` backend runs them for
-CPU tensors, and ``chip_smoke.py`` holds the kernels to them on the card.
+what its CUDA kernel computes (``kernels/csrc/kway_probe.cu``,
+``kernels/csrc/paged_attention.cu``), with plain tensor ops.  The CPU
+tests use them, the kernel wrappers run them for CPU tensors, and
+``chip_smoke.py`` holds the kernels to them on the card.
 
 Lanes are ``[S, ways]`` int32, unpadded: the reference padded ways to the
 TPU's 128-lane register width, which the port has no use for.
@@ -88,3 +89,44 @@ def kway_fused_probe_ref(keys, fprint, meta_a, meta_b, sets, qkeys,
     order = _order(policy, row_keys, occupied, ma1[sets], meta_b[sets],
                    times_put)
     return hit.to(torch.int32), way.to(torch.int32), order.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# paged attention (kernel 5)
+# ---------------------------------------------------------------------------
+
+#: Masked-logit sentinel of the reference's oracle (finite, so a fully
+#: masked row never computes exp(-inf - -inf)).
+ATTN_NEG_INF = -3.0e38
+
+
+def paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens, *,
+                        scale=None, softcap: float = 0.0):
+    """One GQA decode step over a paged KV pool -> [B, H, D] in q's dtype.
+
+    ``q`` [B, H, D]; ``k_pages`` / ``v_pages`` [KVH, P, page, D];
+    ``page_table`` int32 [B, PPS]; ``seq_lens`` int32 [B].  Gathers each
+    sequence's pages, masks positions ``>= seq_len``, softmax in f32
+    (optional tanh softcap).  ``seq_len == 0`` gives zeros.
+    """
+    b, h, d = q.shape
+    kvh, _, page, _ = k_pages.shape
+    pps = page_table.shape[1]
+    g = h // kvh
+    scale = scale if scale is not None else d ** -0.5
+    pt = page_table.long()
+    k = k_pages[:, pt].reshape(kvh, b, pps * page, d)   # [KVH, B, T, D]
+    v = v_pages[:, pt].reshape(kvh, b, pps * page, d)
+    pos = torch.arange(pps * page, device=q.device)[None, :]
+    mask = (pos < seq_lens[:, None].long())[:, None, None, :]  # [B,1,1,T]
+    qg = q.reshape(b, kvh, g, d)
+    logits = torch.einsum("bkgd,kbtd->bkgt", qg.float(), k.float()) * scale
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    logits = torch.where(mask, logits, torch.full_like(logits, ATTN_NEG_INF))
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.where(mask, torch.exp(logits - m), torch.zeros_like(logits))
+    l = e.sum(dim=-1, keepdim=True)
+    w = e / torch.where(l > 0, l, torch.ones_like(l))
+    o = torch.einsum("bkgt,kbtd->bkgd", w, v.float())
+    return o.reshape(b, h, d).to(q.dtype)

@@ -6,9 +6,12 @@ the card with:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Every comparison is exact: the cache is integer state, and the scores are
-float32 computed the same way on both sides.  This file imports no JAX, so
-it runs where only torch is installed.
+The cache kernels' comparisons are exact: the cache is integer state, and
+the scores are float32 computed the same way on both sides.  Paged
+attention (kernel 5) sums in another order than its plain version, so it
+is held at the reference's tolerances, 2e-5 in float32 and 3e-2 in
+bfloat16.  This file imports no JAX, so it runs where only torch is
+installed.
 """
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ from repro_torch.core.backend import make_backend
 from repro_torch.core.kway import KWayConfig
 from repro_torch.core.policies import Policy
 from repro_torch.kernels import kway_probe as kp
+from repro_torch.kernels import paged_attention as kpa
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import replay as krp
 
@@ -281,3 +285,120 @@ def test_replay_hier_kernel_routes_with_the_config_seed(cuda, seed):
     _eq(e1, e2, "per-chunk evictions")
     _assert_states_equal(s1.l1, s2.l1, "L1")
     _assert_states_equal(s1.l2, s2.l2, "L2")
+
+
+def _paged_inputs(dev, dtype, b, h, kvh, d, page, pages, pps, seed):
+    """Random pools and queries; page tables drawn with replacement (so
+    with repeats); sequence lengths include an empty and a full one."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(dev, dtype)  # noqa: E731
+    q = t(rng.standard_normal((b, h, d)).astype(np.float32))
+    kpool = t(rng.standard_normal((kvh, pages, page, d)).astype(np.float32))
+    vpool = t(rng.standard_normal((kvh, pages, page, d)).astype(np.float32))
+    pt = rng.integers(0, pages, (b, pps)).astype(np.int32)
+    sl = rng.integers(1, pps * page + 1, b).astype(np.int32)
+    sl[0] = 0
+    sl[-1] = pps * page
+    return (q, kpool, vpool, torch.from_numpy(pt).to(dev),
+            torch.from_numpy(sl).to(dev))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 256])
+def test_paged_attention_kernel_matches_plain(cuda, d, g, dtype, tol):
+    """Kernel 5 == its plain version on the card for every head dim of the
+    repo's dense configs and GQA group sizes 1-8, with and without a
+    softcap; empty and full sequences, page tables with repeats."""
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    kvh = 2
+    args = _paged_inputs(cuda, dtype, 5, kvh * g, kvh, d, 16, 24, 6, d + g)
+    for cap in (0.0, 30.0):
+        before = kpa.LAUNCHES["paged_attention"]
+        got = kpa.paged_attention(*args, softcap=cap)
+        want = kref.paged_attention_ref(*args, softcap=cap)
+        torch.cuda.synchronize()
+        assert kpa.LAUNCHES["paged_attention"] == before + 1
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        if dtype == torch.bfloat16:
+            # both compute in float32 and round once: about two bf16 ulps
+            torch.testing.assert_close(got.float(), want.float(), atol=1e-3,
+                                       rtol=8e-3)
+        assert not got[0].any(), "an empty sequence gives zeros"
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)],
+                         ids=["f32", "bf16"])
+def test_paged_attention_kernel_stops_at_the_table(cuda, dtype, tol):
+    """A seq_len past PPS x page attends only the table's PPS pages, as
+    the plain version (and the TPU kernel's grid) do; the kernel reads no
+    page-table entry past its sequence's row."""
+    q, kpool, vpool, pt, sl = _paged_inputs(cuda, dtype, 4, 8, 2, 128, 16,
+                                            12, 3, 5)
+    sl = torch.tensor([3 * 16 + 1, 3 * 16 + 40, 1000, 17], dtype=torch.int32,
+                      device=cuda)
+    got = kpa.paged_attention(q, kpool, vpool, pt, sl, softcap=30.0)
+    want = kref.paged_attention_ref(q, kpool, vpool, pt, sl, softcap=30.0)
+    full = kref.paged_attention_ref(q, kpool, vpool, pt,
+                                    sl.clamp(max=3 * 16), softcap=30.0)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(want, full, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("page", [8, 32])
+def test_paged_attention_kernel_page_sizes(cuda, page):
+    """Pages other than 16 tokens, and a scale other than D^-0.5."""
+    args = _paged_inputs(cuda, torch.float32, 3, 8, 2, 128, page, 10, 4, page)
+    got = kpa.paged_attention(*args, scale=0.05, softcap=5.0)
+    want = kref.paged_attention_ref(*args, scale=0.05, softcap=5.0)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_paged_attention_kernel_refuses_what_it_does_not_take(cuda):
+    args = _paged_inputs(cuda, torch.float32, 2, 4, 2, 48, 8, 4, 2, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        kpa.paged_attention(*args)
+    q, kpool, vpool, pt, sl = _paged_inputs(cuda, torch.float32, 2, 4, 2, 64,
+                                            8, 4, 2, 0)
+    with pytest.raises(ValueError, match="dtype"):
+        kpa.paged_attention(q.half(), kpool.half(), vpool.half(), pt, sl)
+    with pytest.raises(ValueError, match="int32"):
+        kpa.paged_attention(q, kpool, vpool, pt.long(), sl)
+
+
+def _serve_engine(cfg, model, backend, dev, prompts):
+    from repro_torch.serve.engine import Engine, EngineConfig
+    eng = Engine(cfg, model, EngineConfig(
+        page=8, num_sets=4, ways=4, max_batch=4, max_seq=128,
+        private_pages=64, backend=backend), device=dev)
+    for p in prompts:
+        eng.submit(p, max_new=6)
+    fin = eng.run()
+    return eng, {rid: (r.generated, r.pages) for rid, r in fin.items()}
+
+
+def test_engine_on_the_card_backends_agree(cuda):
+    """The serving engine on the card: the cuda and torch prefix-cache
+    backends give equal stats, pages and tokens, and every decode step
+    launches kernel 5 once per layer."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = configs.get("deepseek-7b").smoke
+    model = lm.init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(3)
+    shared = rng.integers(2, cfg.vocab_size - 1, 24)
+    prompts = [np.concatenate([shared, rng.integers(2, cfg.vocab_size - 1,
+                                                    int(n))])
+               for n in rng.integers(1, 20, 6)]
+    kpa.LAUNCHES["paged_attention"] = 0
+    eng_c, out_c = _serve_engine(cfg, model, "cuda", cuda, prompts)
+    assert kpa.LAUNCHES["paged_attention"] == \
+        cfg.num_layers * eng_c.stats["decode_steps"] > 0
+    eng_t, out_t = _serve_engine(cfg, model, "torch", cuda, prompts)
+    assert eng_c.stats == eng_t.stats
+    assert out_c == out_t

@@ -97,3 +97,38 @@ def test_on_hit_on_insert(policy):
     np.testing.assert_array_equal(sa.numpy(), np.asarray(ia))
     np.testing.assert_array_equal(sb.numpy(), np.asarray(ib))
     assert tp.Policy.parse(policy.name) == int(policy)
+
+
+def _unfmix32(h: int) -> int:
+    """Inverse of the murmur3 finalizer on one uint32."""
+    m = 0xFFFFFFFF
+    h ^= h >> 16
+    h = h * pow(0xC2B2AE35, -1, 1 << 32) & m
+    h ^= (h >> 13) ^ (h >> 26)
+    h = h * pow(0x85EBCA6B, -1, 1 << 32) & m
+    return h ^ (h >> 16)
+
+
+@pytest.mark.parametrize("page", [1, 4, 16])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_prefix_block_hashes_match_reference(page, seed):
+    """Chain hashes of random prompts, lengths below one page included."""
+    rng = np.random.default_rng(seed)
+    for n in [0, 1, page - 1, page, 3 * page + 1, 10 * page]:
+        toks = rng.integers(0, 1 << 17, max(n, 0)).astype(np.int32)
+        want = jh.prefix_block_hashes(toks, page)
+        got = th.prefix_block_hashes(toks, page)
+        assert got.dtype == np.uint32 and len(got) == n // page
+        np.testing.assert_array_equal(got, want)
+
+
+def test_prefix_block_hashes_fold_the_empty_key():
+    """A prompt whose first chain value is 0xFFFFFFFF (the EMPTY key): both
+    fold it to 1, and the chain goes on from the folded-away value."""
+    x = _unfmix32(0xFFFFFFFF) ^ 0x9E3779B1          # block 1's salt
+    tok = (x * pow(16777619, -1, 1 << 32) & 0xFFFFFFFF) ^ 2166136261
+    toks = np.array([tok, 5, 77], np.uint32)
+    want = jh.prefix_block_hashes(toks, 1)
+    got = th.prefix_block_hashes(toks, 1)
+    assert got[0] == 1
+    np.testing.assert_array_equal(got, want)

@@ -7,7 +7,10 @@
     ``ValueError`` too;
   * neither ``src/repro_torch`` nor ``chip_smoke.py`` imports JAX or any
     module of ``repro`` (checked in a subprocess and in the sources);
-  * ``chip_smoke.py`` fails, and prints no result, without a card.
+  * ``chip_smoke.py`` fails, and prints no result, without a card;
+  * the serving engine keeps the reference's refusals and refuses what is
+    not ported yet (the jitted tick, temperature sampling, shards, MoE and
+    SSM layers) with the ROADMAP item.
 """
 import ast
 import os
@@ -179,10 +182,10 @@ class _StubLib:
 
 @pytest.mark.parametrize("module,source", [
     ("kway_probe", "kway_probe.cu"), ("replay", "replay.cu"),
-    ("replay", "replay_hier.cu")])
+    ("replay", "replay_hier.cu"), ("paged_attention", "paged_attention.cu")])
 def test_ctypes_declarations_match_c_entries(monkeypatch, module, source):
-    """Every C entry's parameter list (void* / int) equals the argtypes its
-    wrapper declares; a mismatch would only show on the card."""
+    """Every C entry's parameter list (void* / int / float) equals the
+    argtypes its wrapper declares; a mismatch would only show on the card."""
     import ctypes
     import importlib
     import re
@@ -202,7 +205,8 @@ def test_ctypes_declarations_match_c_entries(monkeypatch, module, source):
     entries = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)
     assert entries and {n for n, _ in entries} == set(stub.fns)
     for name, params in entries:
-        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
+        kinds = [ctypes.c_void_p if "*" in p else
+                 ctypes.c_float if "float" in p else ctypes.c_int
                  for p in params.split(",")]
         assert stub.fns[name].argtypes == kinds, name
         assert stub.fns[name].restype is ctypes.c_int
@@ -215,3 +219,55 @@ def test_chip_smoke_fails_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _serve_cfg(arch="deepseek-7b"):
+    from repro_torch import configs
+    return configs.get(arch).smoke
+
+
+@pytest.mark.parametrize("ecfg_kw,match", [
+    (dict(jitted=True), "Queue A item 12"),
+    (dict(temperature=0.7), "Queue A item 12"),
+    (dict(shards=2), "Queue A item 8"),
+    (dict(max_seq=100, page=16), "multiple of page"),
+    (dict(decode_block=0), "decode_block"),
+    (dict(max_prompt=24, page=16), "max_prompt"),
+    (dict(max_prompt=1024, max_seq=512), "max_prompt"),
+])
+def test_engine_refusals(ecfg_kw, match):
+    """The reference's own refusals, and the options not ported yet, raise
+    ValueError before the model is touched."""
+    from repro_torch.serve.engine import Engine, EngineConfig
+    with pytest.raises(ValueError, match=match):
+        Engine(_serve_cfg(), None, EngineConfig(**ecfg_kw), device="cpu")
+
+
+@pytest.mark.parametrize("arch,match", [
+    ("mamba2-130m", "decoder-only attention"),
+    ("seamless-m4t-large-v2", "decoder-only attention"),
+    ("mixtral-8x22b", "MoE"), ("hymba-1.5b", "SSM")])
+def test_engine_refuses_unported_layers(arch, match):
+    from repro_torch.serve.engine import Engine, EngineConfig
+    with pytest.raises(ValueError, match=match):
+        Engine(_serve_cfg(arch), None, EngineConfig(), device="cpu")
+
+
+def test_engine_and_cli_run_on_the_card_by_default(no_card):
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, EngineConfig
+    cfg = _serve_cfg()
+    model = lm.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, model, EngineConfig(max_seq=64))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--requests", "1", "--max-new", "1"])
+    with pytest.raises(ValueError, match="Queue A item 12"):
+        serve.main(["--jitted", "--device", "cpu"])
+    eng = Engine(cfg, model, EngineConfig(max_seq=64), device="cpu")
+    assert eng.pool_k.device.type == "cpu"
+    assert serve.main(["--requests", "2", "--max-new", "2",
+                       "--device", "cpu"]) == 0
