@@ -1,0 +1,112 @@
+"""Kernels 4 and 5 and the serving path of one source tree, on one GPU.
+
+    python3 chip_ab.py [SRC] [--label NAME]
+
+Imports ``repro_torch`` from ``SRC`` (default: this checkout's ``src``),
+builds its kernels and, at chip_smoke.py's full-size configurations and
+with its timing helpers (``time_hier_trace``, ``drive_engine``,
+``time_paged_attention``), so that both scripts time alike:
+
+  1. replays the whole 2^22-request zipf trace through the L1-over-L2
+     hierarchy (LRU, L1 512 x 16 over the 131072 x 8 L2) with kernel 4:
+     CUDA events around one launch, and its device time by torch.profiler;
+  2. serves chip_smoke.py's traffic at deepseek-7b's full width through
+     ``Engine.run`` on the ``cuda`` backend: one warm-up run, then
+     ``--runs`` timed runs (tokens/s by the host clock), the first of them
+     capturing every layer's kernel-5 inputs of one decode step;
+  3. times kernel 5 round-robin over those layers: CUDA events per call,
+     the wrapper's host time per call, the device time by torch.profiler.
+
+It prints the card's name and power limit, then one JSON line.  To compare
+two trees, unpack the other into a gitignored directory (``git archive``)
+and run this script on each in turns on one card, on one machine (A, B,
+B, A): a machine's host speed, and so tokens/s, varies between machines.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("src", nargs="?", default=os.path.join(HERE, "src"))
+    ap.add_argument("--label", default="")
+    ap.add_argument("--runs", type=int, default=2)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.src))
+    import chip_smoke as cs
+    from repro_torch.core import hashing, hierarchy, router, traces
+    from repro_torch.core.kway import KWayConfig
+    from repro_torch.core.policies import Policy
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    print(cs.card_line())
+    out = {"label": args.label, "src": args.src}
+    t0 = time.perf_counter()
+    _build.build_all()
+    out["build_s"] = time.perf_counter() - t0
+
+    # 1. kernel 4 over the whole trace
+    trace = traces.generate(cs.TRACE["family"], cs.TRACE["n"],
+                            seed=cs.TRACE["seed"], catalog=cs.TRACE["catalog"],
+                            alpha=cs.TRACE["alpha"])
+    chunks, en = router.pad_chunks(trace, cs.BATCH)
+    qkeys = hashing.key_tensor(chunks, dev)
+    enabled = torch.from_numpy(en).to(dev)
+    cfg = KWayConfig(num_sets=cs.NUM_SETS, ways=cs.WAYS, policy=Policy.LRU)
+    hc = hierarchy.HierarchyConfig(l1_sets=cs.HIER_L1_SETS,
+                                   l1_ways=cs.HIER_L1_WAYS)
+    hst = hierarchy.make_hier(cfg, hc, device=dev)
+    (hits, _, _, _), ms, dev_ms = cs.time_hier_trace(cfg, hc, hst, qkeys,
+                                                     enabled)
+    out.update(hier_ms=ms, hier_device_ms=dev_ms, hier_hits=int(hits.sum()),
+               hier_requests=len(trace))
+    del qkeys, enabled, hst
+
+    # 2. serving at full width
+    scfg = cs.serve_config()
+    model = lm.init_params(scfg, seed=0, device=dev)
+    prompts = cs.serve_traffic(scfg.vocab_size)
+    cs.drive_engine(scfg, model, "cuda", prompts, dev)
+    tok_s, inputs, stats = [], None, None
+    for k in range(args.runs):
+        if k == 0:
+            with cs.CaptureStep(scfg.num_layers,
+                                cs.SERVE_CAPTURE_STEP) as cap:
+                stats, reqs, wall, hr = cs.drive_engine(scfg, model, "cuda",
+                                                        prompts, dev)
+            inputs = cap.inputs
+        else:
+            stats, reqs, wall, hr = cs.drive_engine(scfg, model, "cuda",
+                                                    prompts, dev)
+        tok_s.append(sum(len(t) for t, _, _ in reqs.values()) / wall)
+    out.update(serve_tokens_per_s=tok_s, serve_hit_ratio=hr,
+               serve_stats=stats)
+    del model
+    torch.cuda.empty_cache()
+
+    # 3. kernel 5 round-robin over the captured layers
+    runs = [lambda a=a: kpa.paged_attention(*a[:5], **a[5]) for a in inputs]
+    out["pa_ms"], out["pa_host_ms"], out["pa_device_ms"] = \
+        cs.time_paged_attention(runs)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

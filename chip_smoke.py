@@ -25,8 +25,10 @@ serving slice:
   5. holds kernel 4 (``replay_hierarchical``) to its plain version
      (``hierarchy.replay_l1_over_l2``, run on CPU tensors) over the first
      2^14 requests against the full-size L2 filled by a 2^20-request flat
-     prefix, LRU and HYPERBOLIC, and a TTL run: per-chunk counts and both
-     tiers, exactly;
+     prefix, LRU and HYPERBOLIC, a TTL run, and 2^16 requests through an
+     aliasing-heavy hierarchy (L2 64 x 8 under L1 16 x 16, where most L2
+     rows the kernel copies ahead are written before they are used):
+     per-chunk counts and both tiers, exactly;
   6. reproduces the 36 committed k-way ``jnp`` hit ratios of
      ``benchmarks/baselines/quick.json`` (``replay_batched(batch=1,
      resident=True)``), the 4 ``resident-eq/*/tinylfu`` ratios and the 6
@@ -42,7 +44,11 @@ serving slice:
      the kernels' own device time from torch.profiler; and the requests/s
      of the resident, chunked and hierarchical replays.  Kernel 4's entry is
      timed and bounded on the inputs of its check in 5, where its plain
-     version ran too; its whole-trace run is reported under ``full_*``;
+     version ran too; its whole-trace run is reported under ``full_*``, and
+     its global-L1 form under ``global_*``: the whole trace with the L1 in
+     HBM (shared memory ruled out), equal to the shared-memory run bit for
+     bit, and an L1 too large for shared memory (its first 2^14 requests
+     equal to the plain version);
   9. serving, at deepseek-7b's full width (random bf16 weights from seed
      0; engine and traffic in ``SERVE_*``): a smoke-sized prefill and paged
      decode on the card agree with the CPU; 16 requests through
@@ -54,8 +60,12 @@ serving slice:
      serving CLI once;
  10. kernel 5 (``paged_attention``) against its plain version on the
      captured inputs (bf16 at 3e-2, float32 at 2e-5 with TF32 off) and on
-     a GQA + softcap case, then timed beside its bound and
-     ``scaled_dot_product_attention`` on the same K/V pre-gathered.
+     a GQA + softcap case, then timed round-robin over the captured layers
+     (as a decode step runs them) beside its bound, the wrapper's host
+     time and ``scaled_dot_product_attention`` on the same K/V
+     pre-gathered; and on layer 0 alone, as the previous design was
+     timed.  Kernels 4 and 5 print their previous designs' figures on a
+     line of their own, as constants (not in the JSON summary).
 
 Any mismatch or failure exits non-zero; no phase's failure is caught.  The
 last two lines are the per-kernel JSON summary (6 entries) and the device
@@ -64,6 +74,7 @@ it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -95,6 +106,13 @@ HIER_L1_SETS, HIER_L1_WAYS = 512, 16
 HIER_POLICIES = ("LRU", "HYPERBOLIC")
 #: requests the plain version of kernel 4 walks, one lane at a time
 HIER_CHECK_N = 2**14
+#: an L1 too large for one block's shared memory (320 KiB without the
+#: expiry lane): kernel 4 keeps it in HBM (the global form)
+HIER_GLOBAL_L1_SETS = 2 * HIER_L1_SETS
+#: kernel 4 on an aliasing-heavy hierarchy (L2 64 x 8 under L1 16 x 16:
+#: most rows it copies ahead are written by the lanes in between), held to
+#: its plain version on the first HIER_ALIAS_N requests of the trace
+HIER_ALIAS = dict(l2_sets=64, l1_sets=16, n=2**16)
 #: hierarchy TTL run: L2 8192 x 8, L1 64 x 16, ttl_churn 2^16 requests
 HIER_TTL_L1_SETS, HIER_TTL_N = 64, 2**16
 #: H100 SXM memory rate (bytes/s), the bound of every kernel here
@@ -119,6 +137,16 @@ GQA_CASE = dict(b=8, kvh=4, g=2, d=256, softcap=50.0, pages=1024, page=16,
                 pps=64)
 #: kernel 5's tolerances against its plain version (the reference's own)
 PA_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
+#: the figures of kernels 4 and 5 in their previous designs (kernel 4 with
+#: both tiers in HBM, kernel 5 one CTA per sequence and KV head): constants,
+#: measured by this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md
+#: section 6); kernel 4 on its 2^14-request check inputs and (full_) the
+#: whole trace, kernel 5 on layer 0 of the captured decode step
+PREV_DESIGN = {
+    "replay_hierarchical": dict(ms=29.444, device_ms=29.229,
+                                full_ms=8037.56, full_device_ms=8036.35),
+    "paged_attention": dict(ms=0.2004, device_ms=0.1432),
+}
 #: and, in bf16, the kernel and the plain version both compute in float32
 #: and round once, so they may differ by about two bf16 ulps at most
 PA_BF16_ROUNDING = dict(atol=1e-3, rtol=8e-3)
@@ -134,6 +162,13 @@ def card_line() -> str:
 
 def say(card, msg):
     print(f"[{card}] {msg}", flush=True)
+
+
+def say_previous(card, name):
+    """Print a kernel's previous-design figures, constants from PERF.md."""
+    figs = ", ".join(f"{k}={v}" for k, v in PREV_DESIGN[name].items())
+    say(card, f"{name} previous design (constants from PERF.md section 6, "
+              f"not measured in this run): {figs}")
 
 
 def max_abs_err(pairs) -> int:
@@ -308,6 +343,10 @@ def hier_bound_bytes(cfg, hc, before, after, qkeys, enabled) -> int:
 
 def fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def fmt_share(x) -> str:
+    return "not measured" if x is None else f"{x:.1%}"
 
 
 # ---------------------------------------------------------------------------
@@ -490,7 +529,8 @@ def phase_hier_kernel(card, trace, ttl_trace, dev, results):
     """Kernel 4 == its plain version (run on CPU tensors), exactly: the
     first HIER_CHECK_N requests against the full-size L2 filled by a
     PREFIX-request flat replay (kernel 3) under an empty L1, LRU and
-    HYPERBOLIC, and a TTL run from empty tiers.  The LRU run's inputs are
+    HYPERBOLIC; a TTL run from empty tiers; and the first HIER_ALIAS["n"]
+    requests through the aliasing-heavy HIER_ALIAS hierarchy.  The LRU run's inputs are
     the ones kernel 4's JSON entry is timed and bounded on."""
     from repro_torch.core import hashing, hierarchy, router, simulate
     from repro_torch.core.backend import make_backend
@@ -518,6 +558,13 @@ def phase_hier_kernel(card, trace, ttl_trace, dev, results):
                  hierarchy.make_hier(cfg, hct, device=dev, ttl=True), tch,
                  ten, simulate._pad_ttl_chunks(ttls[:HIER_TTL_N], TTL_BATCH),
                  "empty tiers, ttl_churn"))
+    a = HIER_ALIAS
+    cfg = KWayConfig(num_sets=a["l2_sets"], ways=WAYS, policy=Policy.LRU)
+    hca = hierarchy.HierarchyConfig(l1_sets=a["l1_sets"],
+                                    l1_ways=HIER_L1_WAYS)
+    ach, aen = router.pad_chunks(trace[:a["n"]], BATCH)
+    runs.append((cfg, hca, hierarchy.make_hier(cfg, hca, device=dev), ach,
+                 aen, None, "empty tiers, aliasing-heavy"))
     err = 0
     for k, (cfg, h, st, ch, e, tt, label) in enumerate(runs):
         be = make_backend("cuda", cfg, dev)
@@ -776,6 +823,19 @@ def phase_main_path_hier(card, trace, ttl_trace, dev, results):
     check_launches(card, "hierarchy", ("replay_hierarchical",), results)
 
 
+def time_hier_trace(cfg, hc, hst, qkeys, enabled):
+    """Kernel 4 over a whole trace from ``hst``: (its outputs, ms of one
+    launch by CUDA events, device ms of a second launch by torch.profiler).
+    No warm-up call."""
+    from repro_torch.kernels import replay as krp
+
+    run = lambda: krp.replay_hierarchical(cfg, hc, hst, qkeys,  # noqa: E731
+                                          enabled)
+    out, ms = timed(run)
+    return out, ms, profiled_device_ms(run, 1, ("hier_kernel",),
+                                       warmup=False)
+
+
 def phase_timing(card, trace, dev, results):
     """CUDA-event times of each kernel and its plain version at full size."""
     from repro_torch.core import admission, hashing, hierarchy, kway, router
@@ -921,22 +981,74 @@ def phase_timing(card, trace, dev, results):
     hc = hierarchy.HierarchyConfig(l1_sets=HIER_L1_SETS,
                                    l1_ways=HIER_L1_WAYS)
     hst = hierarchy.make_hier(cfg, hc, device=dev)
-    run = lambda: krp.replay_hierarchical(cfg, hc, hst, qkeys,  # noqa: E731
-                                          enabled)
+    form = krp.hier_l1_form(cfg, hc, False, dev)
+    if form != "shared":
+        raise AssertionError(f"L1 {HIER_L1_SETS}x{HIER_L1_WAYS} runs in the "
+                             f"{form} form, not in shared memory")
     # the main path ran it at this size: no warm-up call
-    (_, _, hout, _), ms = timed(run)
-    dev_ms = profiled_device_ms(run, 1, ("hier_kernel",), warmup=False)
+    (hh, he, hout, _), ms, dev_ms = time_hier_trace(cfg, hc, hst, qkeys,
+                                                    enabled)
     bh = hier_bound_bytes(cfg, hc, hst, hout, qkeys, enabled)
-    results["replay_hierarchical"].update(
-        full_requests=n, full_ms=ms, full_device_ms=dev_ms,
-        full_bound_ms=bh / HBM_BYTES_PER_S * 1e3)
-    say(card, f"replay_hierarchical LRU whole trace n={n} B={BATCH}: "
-              f"{ms:.3f} ms/launch ({n / ms * 1e3:.0f} requests/s, "
-              f"{ms * 1e6 / n:.1f} ns per request), device time "
+    r = results["replay_hierarchical"]
+    r.update(full_requests=n, full_ms=ms, full_device_ms=dev_ms,
+             full_bound_ms=bh / HBM_BYTES_PER_S * 1e3,
+             full_ns_per_request=(ms if dev_ms is None else dev_ms) * 1e6 / n)
+    say(card, f"replay_hierarchical LRU whole trace n={n} B={BATCH}, L1 in "
+              f"shared memory: {ms:.3f} ms/launch ({n / ms * 1e3:.0f} "
+              f"requests/s, {ms * 1e6 / n:.1f} ns per request), device time "
               f"{fmt_ms(dev_ms)} (torch.profiler), bound "
               f"{bh / HBM_BYTES_PER_S * 1e3:.4f} ms ({bh} B); plain version: "
               f"timed on the {HIER_CHECK_N}-request inputs only; "
               f"library_ms: none")
+    say_previous(card, "replay_hierarchical")
+
+    # the global form over the whole trace: the same hierarchy with the
+    # shared form ruled out (the size limit read as 0 bytes), equal to the
+    # shared-memory run bit for bit
+    optin = krp._smem_optin
+    krp._smem_optin = lambda device: 0
+    try:
+        krp.reset_trace_counts()
+        (gh, ge, gout, _), g_ms, g_dev = time_hier_trace(cfg, hc, hst, qkeys,
+                                                         enabled)
+        forms = {key[-1] for key in krp.trace_counts()}
+    finally:
+        krp._smem_optin = optin
+    d = max_abs_err([(gh, hh), (ge, he)] + hier_pairs(gout, hout))
+    if d or forms != {"global"}:
+        raise AssertionError(f"global-L1 form ({forms}) != shared-memory "
+                             f"form over the whole trace (err {d})")
+    # an L1 too large for shared memory: global by size, over the same L2;
+    # its first HIER_CHECK_N requests == the plain version
+    hbig = hierarchy.HierarchyConfig(l1_sets=HIER_GLOBAL_L1_SETS,
+                                     l1_ways=HIER_L1_WAYS)
+    ring, l1_bytes = krp.hier_smem_bytes(cfg, hbig, False)
+    if krp.hier_l1_form(cfg, hbig, False, dev) != "global":
+        raise AssertionError("the large L1 fits shared memory")
+    bst = hierarchy.make_hier(cfg, hbig, device=dev)
+    _, big_ms = timed(lambda: krp.replay_hierarchical(cfg, hbig, bst, qkeys,
+                                                      enabled))
+    m = HIER_CHECK_N // BATCH
+    k_out = krp.replay_hierarchical(cfg, hbig, bst, qkeys[:m], enabled[:m])
+    p_out = hierarchy.replay_l1_over_l2(cfg, hbig, to_cpu(bst), chunks[:m],
+                                        en_c[:m])
+    d = max_abs_err([(k_out[0], p_out[0]), (k_out[1], p_out[1])]
+                    + hier_pairs(k_out[2], p_out[2]))
+    if d:
+        raise AssertionError(f"global-L1 form, L1 {HIER_GLOBAL_L1_SETS}x"
+                             f"{HIER_L1_WAYS}: != plain version (err {d})")
+    r.update(global_forced_ms=g_ms, global_forced_device_ms=g_dev,
+             global_l1=f"{HIER_GLOBAL_L1_SETS}x{HIER_L1_WAYS}",
+             global_ms=big_ms)
+    say(card, f"replay_hierarchical global-L1 form, whole trace: L1 "
+              f"{HIER_L1_SETS}x{HIER_L1_WAYS} with shared memory ruled out "
+              f"== the shared-memory run exactly (hits, evictions, both "
+              f"tiers), {g_ms:.3f} ms/launch, device time {fmt_ms(g_dev)}; "
+              f"L1 {HIER_GLOBAL_L1_SETS}x{HIER_L1_WAYS} ({l1_bytes} B + "
+              f"{ring} B ring > the {optin(dev)} B opt-in) runs global by "
+              f"size: {big_ms:.3f} ms/launch ({big_ms * 1e6 / n:.1f} ns per "
+              f"request); its first {HIER_CHECK_N} requests ({int(k_out[0].sum())}"
+              f" hits) == plain version exactly")
 
 
 # ---------------------------------------------------------------------------
@@ -1245,61 +1357,122 @@ def pa_bound(q, k_pages, page_table, seq_lens):
                                  else "operations"), nbytes
 
 
+def round_robin(fns):
+    """A call that runs the next of ``fns`` in turn."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host milliseconds per call of ``fn`` over ``reps`` calls issued back
+    to back without a sync: what the caller's thread pays (the device runs
+    behind it)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def time_paged_attention(runs):
+    """Kernel 5's wrapper calls ``runs`` (one per layer) in turn, as a
+    decode step runs them: (ms per call by CUDA events over 10 rounds, host
+    ms per call over 10 rounds, device ms by torch.profiler over 3)."""
+    n = len(runs)
+    return (cuda_ms(round_robin(runs), 10 * n),
+            host_ms(round_robin(runs), 10 * n),
+            profiled_device_ms(round_robin(runs), 3 * n,
+                               ("paged_attention_kernel",)))
+
+
 def phase_paged_attention_timing(card, dev, results, serve):
-    """Kernel 5 on layer 0's captured full-width inputs: CUDA events around
-    the wrapper, device time by torch.profiler, the plain version, the
-    bound, and scaled_dot_product_attention on the same K/V gathered into
-    a contiguous [B, H, T, D] beforehand (a yardstick: it excludes the
-    gather, and the port never calls it)."""
+    """Kernel 5 timed round-robin over every captured layer of the decode
+    step, as a step runs them, so that no call finds its K/V in the 50 MB
+    L2 cache from the call before (one layer's K/V is 63.8 MB): CUDA events
+    around wrapper calls, the wrapper's host time per call, the kernel's
+    device time by torch.profiler, the plain version, and
+    scaled_dot_product_attention on each layer's K/V gathered beforehand
+    into a contiguous [B, H, T, D] (a yardstick: it excludes the gather,
+    and the port never calls it).  Then layer 0 alone, 200 times, as the
+    previous design was timed, so that its figures stay comparable."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import paged_attention as kpa
     from repro_torch.kernels import ref as kref
 
-    q, kp, vp, pt, sl, kw = serve["inputs"][0]
-    run = lambda: kpa.paged_attention(q, kp, vp, pt, sl, **kw)  # noqa: E731
-    ms = cuda_ms(run, 200)
-    dev_ms = profiled_device_ms(run, 50, ("paged_attention_kernel",))
-    plain = cuda_ms(lambda: kref.paged_attention_ref(q, kp, vp, pt, sl, **kw),
-                    20)
+    inputs = serve["inputs"]
+    n = len(inputs)
+    runs = [lambda a=a: kpa.paged_attention(*a[:5], **a[5]) for a in inputs]
+    plains = [lambda a=a: kref.paged_attention_ref(*a[:5], **a[5])
+              for a in inputs]
+    q, kp, _, pt, sl, _ = inputs[0]
     bound, by, nbytes = pa_bound(q, kp, pt, sl)
     b, h, d = q.shape
     kvh, _, page, _ = kp.shape
     lens = sl.long()
     t = int((lens.max() + page - 1) // page) * page
     tab = pt[:, :t // page].long()
+    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None])[:, None,
+                                                                  None, :]
 
     def gather(pool):
         g = pool[:, tab].reshape(kvh, b, t, d).transpose(0, 1)
         return g.repeat_interleave(h // kvh, dim=1).contiguous()
 
-    kc, vc = gather(kp), gather(vp)
-    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None])[:, None,
-                                                                  None, :]
-    qs = q[:, :, None, :]
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qs, kc, vc, attn_mask=mask)
-    lib = cuda_ms(sdpa, 200)
-    lib_err = float((sdpa()[:, :, 0].float() - run().float()).abs().max())
-    results["paged_attention"].update(
-        ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound,
-        bound_by=by, library_ms=lib)
-    say(card, f"paged_attention layer 0 of decode step {SERVE_CAPTURE_STEP} "
-              f"(B={b} H={h} KVH={kvh} D={d} page={page}, {int(lens.sum())} "
-              f"tokens): {ms:.4f} ms per wrapper call (CUDA events, mean of "
-              f"200), kernel device time {fmt_ms(dev_ms)} (torch.profiler), "
-              f"bound {bound:.6f} ms by {by} ({nbytes} B), plain {plain:.4f} "
-              f"ms; library_ms {lib:.4f} "
-              f"(scaled_dot_product_attention on K/V gathered beforehand "
-              f"into [B, H, {t}, D], gather excluded; max abs diff to the "
-              f"kernel {lib_err:.3g})")
-    steps = serve["stats"]["decode_steps"]
+    sdpas = []
+    for qi, kpi, vpi, pti, sli, _ in inputs:
+        if not (torch.equal(pti, pt) and torch.equal(sli, sl)):
+            raise AssertionError("the layers of one decode step share their "
+                                 "page table and lengths")
+        kc, vc, qs = gather(kpi), gather(vpi), qi[:, :, None, :]
+        sdpas.append(lambda qs=qs, kc=kc, vc=vc:
+                     F.scaled_dot_product_attention(qs, kc, vc,
+                                                    attn_mask=mask))
+    lib_err = float((sdpas[0]()[:, :, 0].float()
+                     - runs[0]().float()).abs().max())
+
+    ms, host, dev_ms = time_paged_attention(runs)
+    lib = cuda_ms(round_robin(sdpas), 10 * n)
+    plain = cuda_ms(round_robin(plains), n)
+    ms0 = cuda_ms(runs[0], 200)
+    dev0 = profiled_device_ms(runs[0], 50, ("paged_attention_kernel",))
+    lib0 = cuda_ms(sdpas[0], 200)
+    del sdpas
+    torch.cuda.empty_cache()
     r = results["paged_attention"]
+    r.update(ms=ms, device_ms=dev_ms, host_ms=host, plain_ms=plain,
+             bound_ms=bound, bound_by=by, library_ms=lib,
+             bound_share=None if dev_ms is None else bound / dev_ms,
+             layer0_ms=ms0, layer0_device_ms=dev0, layer0_library_ms=lib0,
+             split=list(kpa.split_plan(
+                 page, d, q.element_size(), pt.shape[1], b, kvh,
+                 torch.cuda.get_device_properties(
+                     dev).multi_processor_count)))
+    say(card, f"paged_attention round-robin over the {n} layers of decode "
+              f"step {SERVE_CAPTURE_STEP} (B={b} H={h} KVH={kvh} D={d} "
+              f"page={page}, {int(lens.sum())} tokens; W, pages per CTA, S ="
+              f" {r['split']}): {ms:.4f} ms per wrapper call (CUDA events, "
+              f"{10 * n} calls), host {host:.4f} ms per call "
+              f"(perf_counter, no sync), kernel device time "
+              f"{fmt_ms(dev_ms)} (torch.profiler, {3 * n} calls), bound "
+              f"{bound:.6f} ms by {by} ({nbytes} B; bound share "
+              f"{fmt_share(r['bound_share'])}), plain {plain:.4f} ms; "
+              f"library_ms {lib:.4f} (scaled_dot_product_attention on K/V "
+              f"gathered beforehand into [B, H, {t}, D], gather excluded; "
+              f"max abs diff to the kernel {lib_err:.3g})")
+    say(card, f"paged_attention layer 0 alone (the previous design's method):"
+              f" {ms0:.4f} ms per wrapper call (CUDA events, 200 calls), "
+              f"device time {fmt_ms(dev0)} (torch.profiler, 50 calls), "
+              f"library_ms {lib0:.4f}")
+    say_previous(card, "paged_attention")
+    steps = serve["stats"]["decode_steps"]
     say(card, f"serving: {r['serve_tokens_per_s']:.1f} tokens/s, "
-              f"{steps} decode steps x {len(serve['inputs'])} layers = "
-              f"{r['launches']} kernel-5 launches; kernel 5 at "
-              f"{ms:.4f} ms would be {ms * r['launches'] / 1e3:.3f} s of the "
-              f"{r['serve_s']:.3f} s run")
+              f"{steps} decode steps x {n} layers = {r['launches']} "
+              f"kernel-5 launches; kernel 5 at {ms:.4f} ms would be "
+              f"{ms * r['launches'] / 1e3:.3f} s of the {r['serve_s']:.3f} s "
+              f"run")
 
 
 def main() -> int:
@@ -1405,8 +1578,9 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r.get("bound_by", "bytes"),
             "library_ms": r.get("library_ms"),
             **{k: v for k, v in r.items()
-               if k in ("requests", "tol") or k.startswith(
-                   ("full_", "serve_", "gqa_", "max_abs_err_"))}})
+               if k in ("requests", "tol", "host_ms", "bound_share", "split")
+               or k.startswith(("full_", "serve_", "gqa_", "max_abs_err_",
+                                "layer0_", "global_"))}})
     print("kernels " + ", ".join(
         f"{k['name']}: launches={k['launches']} exact={k['exact']} "
         f"ms={k['ms']:.4f}" for k in kernels) + f" [{card}]")

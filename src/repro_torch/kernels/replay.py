@@ -10,7 +10,11 @@ twin's ``kway.access`` (``kway.replay_chunks``; with TinyLFU
 
 Kernel 4 (``replay_hierarchical``, ``csrc/replay_hier.cu``) replaces the
 Pallas TPU kernel ``replay_hierarchical``: the exclusive L1-over-L2 replay.
-Its plain version is ``core/hierarchy.replay_l1_over_l2``.
+Its plain version is ``core/hierarchy.replay_l1_over_l2``.  It keeps the
+L1 in shared memory for the launch when the L1 and its ring of prefetched
+L2 rows fit the card's opt-in shared memory per block (the ``"shared"``
+form), else in HBM (the ``"global"`` form): ``hier_l1_form`` decides by
+size.
 
 Both kernels equal their plain versions bit for bit: per-chunk hits and
 evictions, the final state(s) and the final sketch.  On CPU tensors a
@@ -34,6 +38,9 @@ from repro_torch.kernels.kway_probe import MAX_WAYS
 #: Most lanes per chunk: the chunk's lanes are staged in shared memory
 #: (14 B each, within the 227 KB a block can use).
 MAX_BATCH = 16384
+#: L2 rows kernel 4 copies ahead of its chain (``kRing`` of
+#: ``csrc/replay_hier.cu``), 6 int32 lanes of 32 x NJ ways each.
+HIER_RING = 8
 
 _TRACE_COUNTS: collections.Counter = collections.Counter()
 
@@ -80,9 +87,35 @@ def _lib() -> ctypes.CDLL:
 @functools.cache
 def _hier_lib() -> ctypes.CDLL:
     lib = _build.library("replay_hier")
-    lib.replay_hier_launch.argtypes = [_P] * 16 + [_I] * 11 + [_P] * 3
+    lib.replay_hier_launch.argtypes = [_P] * 16 + [_I] * 12 + [_P] * 3
     lib.replay_hier_launch.restype = _I
     return lib
+
+
+def hier_smem_bytes(cfg: kway.KWayConfig, hier, expiry: bool) -> tuple:
+    """(ring bytes, L1 bytes) of kernel 4's shared memory: its ring of
+    ``HIER_RING`` L2 rows, and the L1's lanes (with the expiry lane when the
+    tiers carry one), which only the ``"shared"`` form holds there."""
+    widest = max(cfg.ways, hier.l1_ways)
+    nj = 1 if widest <= 32 else 2 if widest <= 64 else 4
+    lanes = len(kway.STATE_LANES) + bool(expiry)
+    return (4 * HIER_RING * 6 * 32 * nj,
+            4 * lanes * hier.l1_sets * hier.l1_ways)
+
+
+@functools.cache
+def _smem_optin(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+
+
+def hier_l1_form(cfg: kway.KWayConfig, hier, expiry: bool, device) -> str:
+    """``"shared"`` when kernel 4's ring and L1 fit ``device``'s opt-in
+    shared memory per block, else ``"global"`` (a rule on size: both forms
+    compute the same)."""
+    ring, l1 = hier_smem_bytes(cfg, hier, expiry)
+    fits = ring + l1 <= _smem_optin(torch.device(device))
+    return "shared" if fits else "global"
 
 
 def _ptr(t):
@@ -245,6 +278,7 @@ def replay_hierarchical(cfg: kway.KWayConfig, hier, state, qkeys, enabled,
     hits = torch.empty(steps, dtype=torch.int32, device=dev)
     evs = torch.empty_like(hits)
     clock = state.l2.clock.to(torch.int32).reshape(1).contiguous()
+    form = hier_l1_form(cfg, hier, e1 is not None, dev)
 
     rc = _hier_lib().replay_hier_launch(
         *(_ptr(l1[f]) for f in kway.STATE_LANES), _ptr(e1),
@@ -252,12 +286,12 @@ def replay_hierarchical(cfg: kway.KWayConfig, hier, state, qkeys, enabled,
         _ptr(qk), _ptr(en), _ptr(tt), steps, batch, hier.l1_sets,
         hier.l1_ways, cfg.num_sets, cfg.ways,
         cfg.seed ^ hierarchy.L1_SEED_SALT, cfg.seed, int(cfg.policy),
-        int(hier.promote), int(hier.demote), _ptr(hits), _ptr(evs),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(hier.promote), int(hier.demote), int(form == "shared"),
+        _ptr(hits), _ptr(evs), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "replay_hierarchical")
     _TRACE_COUNTS[("launch-hier", int(cfg.policy), hier.l1_sets,
                    hier.l1_ways, cfg.num_sets, cfg.ways, steps, batch,
-                   hier.promote, hier.demote, ttls is not None)] += 1
+                   hier.promote, hier.demote, ttls is not None, form)] += 1
     clock_f = state.l2.clock + 2 * batch * steps
     out = hierarchy.HierState(
         l1=kway.KWayState(**l1, clock=clock_f.clone(), expiry=e1),

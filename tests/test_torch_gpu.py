@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import admission, hierarchy, kway, router, simulate, traces
+from repro_torch.core import (admission, hashing, hierarchy, kway, router,
+                              simulate, traces)
 from repro_torch.core.backend import make_backend
 from repro_torch.core.kway import KWayConfig
 from repro_torch.core.policies import Policy
@@ -287,6 +288,89 @@ def test_replay_hier_kernel_routes_with_the_config_seed(cuda, seed):
     _assert_states_equal(s1.l2, s2.l2, "L2")
 
 
+def _hier_equal_plain(cfg, hc, dev, chunks, en, tt=None, form=None):
+    """Kernel 4 from empty tiers == hierarchy.replay_l1_over_l2: per-chunk
+    hits and evictions and both tiers, exactly; with ``form``, the L1 form
+    that ran.  -> (hits, evictions)."""
+    be = make_backend("cuda", cfg, dev)
+    krp.reset_trace_counts()
+    h1, e1, s1, _ = be.replay(be.init(ttl=tt is not None), chunks, en,
+                              hierarchy=hc, ttls=tt)
+    torch.cuda.synchronize()
+    (key,) = krp.trace_counts()
+    if form is not None:
+        assert key[-1] == form
+    st0 = hierarchy.make_hier(cfg, hc, device="cpu", ttl=tt is not None)
+    h2, e2, s2, _ = hierarchy.replay_l1_over_l2(cfg, hc, st0, chunks, en,
+                                                ttls=tt)
+    _eq(h1, h2, "per-chunk hits")
+    _eq(e1, e2, "per-chunk evictions")
+    _assert_states_equal(s1.l1, s2.l1, "L1")
+    _assert_states_equal(s1.l2, s2.l2, "L2")
+    return h1, e1
+
+
+@pytest.mark.parametrize("policy", ALL_POLICIES)
+@pytest.mark.parametrize("l2_sets", [1, 2])
+@pytest.mark.parametrize("ttl", [False, True], ids=["plain", "ttl"])
+def test_replay_hier_kernel_tiny_l2_aliases_every_prefetch(cuda, policy,
+                                                           l2_sets, ttl):
+    """An L2 of 1 or 2 sets: nearly every L2 row the kernel copies ahead of
+    its chain is one that the lanes in between store to (promote clears,
+    in-place updates, demotions, scrubs)."""
+    cfg = KWayConfig(num_sets=l2_sets, ways=8, policy=policy)
+    hc = hierarchy.HierarchyConfig(l1_sets=4, l1_ways=4)
+    _, chunks, en, tt = _hier_run(cfg, cuda, 1500, int(policy) + l2_sets,
+                                  ttl)
+    h, e = _hier_equal_plain(cfg, hc, cuda, chunks, en, tt)
+    assert int(h.sum()) > 0 and int(e.sum()) > 0
+
+
+@pytest.mark.parametrize("l1_sets", [1, 2])
+def test_replay_hier_kernel_demotes_into_the_next_lanes_set(cuda, l1_sets):
+    """Every lane's L1 victim is demoted into the L2 set that the next lane
+    probes: one L1 set of 2 ways under LRU displaces lane i-2's key, and
+    keys cycle over 3 L2 sets, so lane i+1's key shares that key's set.
+    Four keys per set come back (L2 hits, promoted); every 7th lane brings
+    a fresh key (L2 evictions).  With 2 L1 sets the victims follow no
+    fixed order, but demotions still land in the sets the next lanes
+    probe."""
+    cfg = KWayConfig(num_sets=64, ways=4, policy=Policy.LRU)
+    hc = hierarchy.HierarchyConfig(l1_sets=l1_sets, l1_ways=2)
+    cand = torch.arange(1, 1 << 16, dtype=torch.int32)
+    sets = hashing.set_index(hashing.sanitize_keys(cand), cfg.num_sets,
+                             cfg.seed)
+    pools = [cand[sets == s] for s in range(3)]
+    keys = [int(pools[i % 3][4 + i // 7] if i % 7 == 0
+                else pools[i % 3][(i // 3) % 4]) for i in range(3000)]
+    chunks, en = router.pad_chunks(np.array(keys, dtype=np.uint32), 32)
+    h, e = _hier_equal_plain(cfg, hc, cuda, chunks, en)
+    assert int(h.sum()) > 500 and int(e.sum()) > 0
+
+
+@pytest.mark.parametrize("over", [0, 1], ids=["at_the_limit", "just_over"])
+def test_replay_hier_kernel_l1_at_the_shared_memory_limit(cuda, over):
+    """The widest L1 of 512 sets whose lanes and the ring of prefetched L2
+    rows fit the card's opt-in shared memory runs in the shared form; one
+    way more runs in the global form.  Both equal the plain version."""
+    cfg = KWayConfig(num_sets=16, ways=8, policy=Policy.LRU)
+    limit = torch.cuda.get_device_properties(
+        cuda).shared_memory_per_block_optin
+    ring, l1_way = krp.hier_smem_bytes(
+        cfg, hierarchy.HierarchyConfig(l1_sets=512, l1_ways=1), False)
+    ways = (limit - ring) // l1_way
+    assert ways + 1 <= 32, "one ring layout for both cases"
+    hc = hierarchy.HierarchyConfig(l1_sets=512, l1_ways=ways + over)
+    form = "global" if over else "shared"
+    assert krp.hier_l1_form(cfg, hc, False, cuda) == form
+    # about 55 distinct keys per L1 set: the L1 fills and demotes into a
+    # small L2, which evicts
+    keys = traces.generate("zipf", 32000, seed=11, catalog=1 << 22)
+    chunks, en = router.pad_chunks(keys, 256)
+    _, e = _hier_equal_plain(cfg, hc, cuda, chunks, en, form=form)
+    assert int(e.sum()) > 0
+
+
 def _paged_inputs(dev, dtype, b, h, kvh, d, page, pages, pps, seed):
     """Random pools and queries; page tables drawn with replacement (so
     with repeats); sequence lengths include an empty and a full one."""
@@ -357,6 +441,45 @@ def test_paged_attention_kernel_page_sizes(cuda, page):
     got = kpa.paged_attention(*args, scale=0.05, softcap=5.0)
     want = kref.paged_attention_ref(*args, scale=0.05, softcap=5.0)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("page", [8, 16, 32])
+@pytest.mark.parametrize("kvh,pps", [(8, 128), (2, 16)],
+                         ids=["wide", "narrow"])
+def test_paged_attention_kernel_split_boundaries(cuda, kvh, pps, page, g,
+                                                 dtype, tol):
+    """Split-K at its edges: sequence lengths 0, 1, page - 1, page, exactly
+    the end of the first split, one past it, the whole table and past it;
+    the short ones leave every split but the first empty.  A wide grid
+    (two pages per warp) and a narrow one (one page per CTA).  Each launch
+    leaves its tickets at 0."""
+    d = 128
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    esize = torch.empty((), dtype=dtype).element_size()
+    _, ppc, splits = kpa.split_plan(page, d, esize, pps, 8, kvh, sms)
+    assert splits > 1 and splits * ppc >= pps
+    q, kpool, vpool, pt, _ = _paged_inputs(cuda, dtype, 8, kvh * g, kvh, d,
+                                           page, 64, pps, page + g)
+    sl = torch.tensor([0, 1, page - 1, page, ppc * page, ppc * page + 1,
+                       pps * page, pps * page + 7], dtype=torch.int32,
+                      device=cuda)
+    for cap in (0.0, 30.0):
+        got = kpa.paged_attention(q, kpool, vpool, pt, sl, softcap=cap)
+        want = kref.paged_attention_ref(q, kpool, vpool, pt, sl, softcap=cap)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(got.float(), want.float(), atol=1e-3,
+                                       rtol=8e-3)
+        assert not got[0].any(), "an empty sequence gives zeros"
+    for tickets in kpa._TICKETS.values():
+        assert not tickets.any(), "a launch left a ticket set"
 
 
 def test_paged_attention_kernel_refuses_what_it_does_not_take(cuda):

@@ -271,3 +271,49 @@ def test_engine_and_cli_run_on_the_card_by_default(no_card):
     assert eng.pool_k.device.type == "cpu"
     assert serve.main(["--requests", "2", "--max-new", "2",
                        "--device", "cpu"]) == 0
+
+
+@pytest.mark.parametrize("shape,want", [
+    # deepseek-7b serving: page 16, D 128 bf16, PPS 64, 8 sequences x 32
+    # KV heads on 132 SMs: 4 warps, 2 pages each, 8 splits
+    (dict(page=16, d=128, itemsize=2, pps=64, b=8, kvh=32), (4, 8, 8)),
+    # one sequence: smaller CTAs until the grid holds 4 CTAs per SM
+    (dict(page=16, d=128, itemsize=2, pps=64, b=1, kvh=32), (4, 2, 32)),
+    # float32 D 256 in 32-token pages: one warp's ring is 128 KiB
+    (dict(page=32, d=256, itemsize=4, pps=8, b=2, kvh=2), (1, 1, 8)),
+    (dict(page=8, d=64, itemsize=2, pps=3, b=200, kvh=4), (4, 8, 1)),
+])
+def test_paged_attention_split_plan(shape, want):
+    """Kernel 5's split comes from the shapes and the SM count alone (never
+    from seq_lens): every page of the table falls in one split, and a
+    warp's page ids fit its lanes."""
+    from repro_torch.kernels import paged_attention as kpa
+    w, ppc, s = kpa.split_plan(**shape, sms=132)
+    assert (w, ppc, s) == want
+    assert s * ppc >= shape["pps"] > (s - 1) * ppc
+    assert 1 <= w <= 4 and ppc <= 32 * w
+
+
+@pytest.mark.parametrize("l1,l2_ways,expiry,form", [
+    ((512, 16), 8, True, "shared"),      # the chip configuration, 192 KiB
+    ((1024, 16), 8, False, "global"),    # 320 KiB
+    ((512, 22), 8, False, "shared"),     # the widest 512-set L1 that fits
+    ((512, 23), 8, False, "global"),
+    ((64, 48), 40, True, "shared"),      # two ways per thread
+])
+def test_replay_hier_l1_form_by_size(monkeypatch, l1, l2_ways, expiry, form):
+    """Kernel 4 keeps the L1 in shared memory exactly when the L1 lanes and
+    its ring of prefetched L2 rows fit the opt-in shared memory per block
+    (232,448 B on an H100); the ring holds 8 rows of 6 lanes x 32 ways per
+    way-slot of a thread."""
+    from repro_torch.core import hierarchy
+    from repro_torch.core.kway import KWayConfig
+    from repro_torch.kernels import replay as krp
+    monkeypatch.setattr(krp, "_smem_optin", lambda device: 232448)
+    cfg = KWayConfig(num_sets=64, ways=l2_ways)
+    hc = hierarchy.HierarchyConfig(l1_sets=l1[0], l1_ways=l1[1])
+    ring, l1_bytes = krp.hier_smem_bytes(cfg, hc, expiry)
+    assert ring == 4 * krp.HIER_RING * 6 * 32 * (1 if max(l1[1], l2_ways)
+                                                  <= 32 else 2)
+    assert l1_bytes == 4 * (5 + expiry) * l1[0] * l1[1]
+    assert krp.hier_l1_form(cfg, hc, expiry, "cpu") == form
