@@ -1,20 +1,25 @@
-"""Kernels 4 and 5 and the serving path of one source tree, on one GPU.
+"""Kernels 3, 4 and 5 and the serving path of one source tree, on one GPU.
 
     python3 chip_ab.py [SRC] [--label NAME]
 
 Imports ``repro_torch`` from ``SRC`` (default: this checkout's ``src``),
 builds its kernels and, at chip_smoke.py's full-size configurations and
-with its timing helpers (``time_hier_trace``, ``drive_engine``,
-``time_paged_attention``), so that both scripts time alike:
+with its timing helpers (``time_replay_trace``, ``time_hier_trace``,
+``drive_engine``, ``time_paged_attention``), so that both scripts time
+alike:
 
-  1. replays the whole 2^22-request zipf trace through the L1-over-L2
+  1. replays the whole 2^22-request zipf trace through the 131072 x 8
+     cache with kernel 3, flat LRU and TinyLFU (``for_capacity(2^20)``):
+     CUDA events per wrapper call (mean of 3 after a warm-up), and the
+     device time of its kernels by torch.profiler;
+  2. replays the whole 2^22-request zipf trace through the L1-over-L2
      hierarchy (LRU, L1 512 x 16 over the 131072 x 8 L2) with kernel 4:
      CUDA events around one launch, and its device time by torch.profiler;
-  2. serves chip_smoke.py's traffic at deepseek-7b's full width through
+  3. serves chip_smoke.py's traffic at deepseek-7b's full width through
      ``Engine.run`` on the ``cuda`` backend: one warm-up run, then
      ``--runs`` timed runs (tokens/s by the host clock), the first of them
-     capturing every layer's kernel-5 inputs of one decode step;
-  3. times kernel 5 round-robin over those layers: CUDA events per call,
+     capturing every layer's kernel-5 inputs of one decode step, then
+     times kernel 5 round-robin over those layers: CUDA events per call,
      the wrapper's host time per call, the device time by torch.profiler.
 
 It prints the card's name and power limit, then one JSON line.  To compare
@@ -47,7 +52,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.abspath(args.src))
     import chip_smoke as cs
-    from repro_torch.core import hashing, hierarchy, router, traces
+    from repro_torch.core import admission, hashing, hierarchy, kway, router
+    from repro_torch.core import traces
     from repro_torch.core.kway import KWayConfig
     from repro_torch.core.policies import Policy
     from repro_torch.kernels import _build
@@ -61,7 +67,6 @@ def main(argv=None) -> int:
     _build.build_all()
     out["build_s"] = time.perf_counter() - t0
 
-    # 1. kernel 4 over the whole trace
     trace = traces.generate(cs.TRACE["family"], cs.TRACE["n"],
                             seed=cs.TRACE["seed"], catalog=cs.TRACE["catalog"],
                             alpha=cs.TRACE["alpha"])
@@ -69,16 +74,29 @@ def main(argv=None) -> int:
     qkeys = hashing.key_tensor(chunks, dev)
     enabled = torch.from_numpy(en).to(dev)
     cfg = KWayConfig(num_sets=cs.NUM_SETS, ways=cs.WAYS, policy=Policy.LRU)
+    out["requests"] = len(trace)
+
+    # 1. kernel 3 over the whole trace, flat and TinyLFU
+    st0 = kway.make_cache(cfg, device=dev)
+    for label, tl in (("flat", None),
+                      ("tinylfu", admission.for_capacity(cs.NUM_SETS
+                                                         * cs.WAYS))):
+        (hits, evs, _, _), ms, dev_ms = cs.time_replay_trace(
+            cfg, st0, qkeys, enabled, tinylfu=tl, reps=3)
+        out.update({f"k3_{label}_ms": ms, f"k3_{label}_device_ms": dev_ms,
+                    f"k3_{label}_hits": int(hits.sum()),
+                    f"k3_{label}_evictions": int(evs.sum())})
+
+    # 2. kernel 4 over the whole trace
     hc = hierarchy.HierarchyConfig(l1_sets=cs.HIER_L1_SETS,
                                    l1_ways=cs.HIER_L1_WAYS)
     hst = hierarchy.make_hier(cfg, hc, device=dev)
     (hits, _, _, _), ms, dev_ms = cs.time_hier_trace(cfg, hc, hst, qkeys,
                                                      enabled)
-    out.update(hier_ms=ms, hier_device_ms=dev_ms, hier_hits=int(hits.sum()),
-               hier_requests=len(trace))
-    del qkeys, enabled, hst
+    out.update(hier_ms=ms, hier_device_ms=dev_ms, hier_hits=int(hits.sum()))
+    del qkeys, enabled, hst, st0
 
-    # 2. serving at full width
+    # 3. serving at full width
     scfg = cs.serve_config()
     model = lm.init_params(scfg, seed=0, device=dev)
     prompts = cs.serve_traffic(scfg.vocab_size)
@@ -100,7 +118,7 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
 
-    # 3. kernel 5 round-robin over the captured layers
+    # kernel 5 round-robin over the captured layers
     runs = [lambda a=a: kpa.paged_attention(*a[:5], **a[5]) for a in inputs]
     out["pa_ms"], out["pa_host_ms"], out["pa_device_ms"] = \
         cs.time_paged_attention(runs)

@@ -16,7 +16,9 @@ serving slice:
   3. holds kernel 3 (``replay_resident``) to the chunked torch twin and to
      the ``cuda`` backend's chunked path (kernel 2 + torch apply): per-chunk
      hits and evictions and the final state, exactly; LRU at full size,
-     HYPERBOLIC on the first 2^20 requests, and a TTL replay;
+     HYPERBOLIC on the first 2^20 requests, and a TTL replay; then the skew
+     check: 2^20 requests of which every other one is the same key, held
+     exactly to the twin;
   4. holds kernel 3's TinyLFU branch to the chunked torch twin (record ->
      peek -> admit -> access) at full size, LRU and LFU and a run whose
      sample ages the sketch 4 times: per-chunk counts, final state and
@@ -42,7 +44,11 @@ serving slice:
   8. times each kernel beside its bound and its plain version: CUDA events
      around wrapper calls (what a caller pays, host overhead included) and
      the kernels' own device time from torch.profiler; and the requests/s
-     of the resident, chunked and hierarchical replays.  Kernel 4's entry is
+     of the resident, chunked and hierarchical replays.  Kernel 3 (flat and
+     TinyLFU, whole trace) also reports its bucketing alone and its share,
+     the grid its owners form ran on (from the profiler's trace: more than
+     one block), and its TinyLFU forms at narrow chunks (grid against
+     block; both equal bit for bit).  Kernel 4's entry is
      timed and bounded on the inputs of its check in 5, where its plain
      version ran too; its whole-trace run is reported under ``full_*``, and
      its global-L1 form under ``global_*``: the whole trace with the L1 in
@@ -64,7 +70,7 @@ serving slice:
      (as a decode step runs them) beside its bound, the wrapper's host
      time and ``scaled_dot_product_attention`` on the same K/V
      pre-gathered; and on layer 0 alone, as the previous design was
-     timed.  Kernels 4 and 5 print their previous designs' figures on a
+     timed.  Kernels 3, 4 and 5 print their previous designs' figures on a
      line of their own, as constants (not in the JSON summary).
 
 Any mismatch or failure exits non-zero; no phase's failure is caught.  The
@@ -115,6 +121,16 @@ HIER_GLOBAL_L1_SETS = 2 * HIER_L1_SETS
 HIER_ALIAS = dict(l2_sets=64, l1_sets=16, n=2**16)
 #: hierarchy TTL run: L2 8192 x 8, L1 64 x 16, ttl_churn 2^16 requests
 HIER_TTL_L1_SETS, HIER_TTL_N = 64, 2**16
+#: kernel 3's skew check: SKEW_N requests of the trace, every other one
+#: replaced by the trace's first key (one set takes half of all lanes)
+SKEW_N = 2**20
+#: kernel 3's device kernels (this design's and the one-block design's, so
+#: that chip_ab.py times either tree)
+KERNEL3_NAMES = ("bucket_", "owners_kernel", "grid_kernel", "block_kernel",
+                 "replay_kernel")
+#: TinyLFU chunk widths at which kernel 3's grid and block forms are timed
+#: against each other, on the first TL_NARROW_N requests
+TL_NARROW_BATCHES, TL_NARROW_N = (1, 8, 16, 32, 128, 1024), 2**14
 #: H100 SXM memory rate (bytes/s), the bound of every kernel here
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM dense bf16 tensor-core rate (FLOP/s), kernel 5's operations bound
@@ -137,12 +153,16 @@ GQA_CASE = dict(b=8, kvh=4, g=2, d=256, softcap=50.0, pages=1024, page=16,
                 pps=64)
 #: kernel 5's tolerances against its plain version (the reference's own)
 PA_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
-#: the figures of kernels 4 and 5 in their previous designs (kernel 4 with
-#: both tiers in HBM, kernel 5 one CTA per sequence and KV head): constants,
-#: measured by this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md
-#: section 6); kernel 4 on its 2^14-request check inputs and (full_) the
-#: whole trace, kernel 5 on layer 0 of the captured decode step
+#: the figures of kernels 3, 4 and 5 in their previous designs (kernel 3
+#: one thread block, kernel 4 with both tiers in HBM, kernel 5 one CTA per
+#: sequence and KV head): constants, measured by this script on an NVIDIA
+#: H100 80GB HBM3 at 700.00 W (PERF.md section 6); kernel 3 on the whole
+#: trace (LRU; TinyLFU for_capacity(2^20)), kernel 4 on its 2^14-request
+#: check inputs and (full_) the whole trace, kernel 5 on layer 0 of the
+#: captured decode step
 PREV_DESIGN = {
+    "replay_resident": dict(ms=653.18, device_ms=651.70),
+    "replay_resident_tinylfu": dict(ms=601.47, device_ms=600.25),
     "replay_hierarchical": dict(ms=29.444, device_ms=29.229,
                                 full_ms=8037.56, full_device_ms=8036.35),
     "paged_attention": dict(ms=0.2004, device_ms=0.1432),
@@ -836,6 +856,85 @@ def time_hier_trace(cfg, hc, hst, qkeys, enabled):
                                        warmup=False)
 
 
+def time_replay_trace(cfg, st0, qkeys, enabled, tinylfu=None, reps=5):
+    """Kernel 3 over a whole trace from ``st0``: (its outputs, mean ms per
+    wrapper call by CUDA events over ``reps`` calls after a warm-up, device
+    ms of one call's kernel-3 kernels by torch.profiler)."""
+    from repro_torch.kernels import replay as krp
+
+    run = lambda: krp.replay_resident(cfg, st0, qkeys,  # noqa: E731
+                                      enabled, tinylfu=tinylfu)
+    out = run()
+    ms = cuda_ms(run, reps, warmup=False)
+    return out, ms, profiled_device_ms(run, 1, KERNEL3_NAMES, warmup=False)
+
+
+def time_bucketing(cfg, qkeys, enabled, reps=5):
+    """Kernel 3's bucketing alone on a trace: (ms per call by CUDA events,
+    device ms by torch.profiler)."""
+    from repro_torch.core import kway
+    from repro_torch.kernels import replay as krp
+
+    qk, sets = kway.route(cfg, qkeys.reshape(-1))
+    qk = qk.view(qkeys.shape)
+    sets = sets.to(torch.int32).view(qkeys.shape)
+    run = lambda: krp.bucket_lanes(qk, sets, enabled,  # noqa: E731
+                                   cfg.num_sets)
+    return cuda_ms(run, reps), profiled_device_ms(run, 1, ("bucket_",))
+
+
+def kernel_grids(fn, name) -> list:
+    """Grid sizes (blocks) of the launches of kernels whose names contain
+    ``name`` in one call of ``fn``, from torch.profiler's trace ([]: the
+    trace carries no grid)."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    grids = []
+    for ev in events:
+        grid = (ev.get("args") or {}).get("grid")
+        if name in ev.get("name", "") and grid:
+            grids.append(int(np.prod(grid)))
+    return grids
+
+
+def phase_skew_kernel(card, trace, dev, results):
+    """Kernel 3 on a skewed full-size trace: the first SKEW_N requests with
+    every other one replaced by the first key, so one owner walks every
+    chunk with half of its lanes: == the torch twin, exactly (LRU)."""
+    from repro_torch.core import router
+    from repro_torch.core.backend import make_backend
+    from repro_torch.core.kway import KWayConfig
+    from repro_torch.core.policies import Policy
+
+    tr = np.array(trace[:SKEW_N])
+    tr[::2] = tr[0]
+    chunks, en = router.pad_chunks(tr, BATCH)
+    cfg = KWayConfig(num_sets=NUM_SETS, ways=WAYS, policy=Policy.LRU)
+    cb = make_backend("cuda", cfg, dev)
+    tb = make_backend("torch", cfg, dev)
+    got, ms = timed(lambda: cb.replay(cb.init(), chunks, en))
+    want, plain = timed(lambda: tb.replay(tb.init(), chunks, en))
+    d = max_abs_err([(got[0], want[0]), (got[1], want[1])]
+                    + state_pairs(got[2], want[2]))
+    if d:
+        raise AssertionError(f"replay_resident skew: != torch twin (err {d})")
+    say(card, f"kernel 3 == torch twin on the skewed trace (LRU S={NUM_SETS} "
+              f"ways={WAYS}, n={SKEW_N}, B={BATCH}, every other request key "
+              f"{int(tr[0])}): hits {int(got[0].sum())} evictions "
+              f"{int(got[1].sum())} (CUDA events: kernel {ms:.3f} ms, twin "
+              f"{plain:.3f} ms)")
+    results["replay_resident"]["skew_ms"] = ms
+
+
 def phase_timing(card, trace, dev, results):
     """CUDA-event times of each kernel and its plain version at full size."""
     from repro_torch.core import admission, hashing, hierarchy, kway, router
@@ -917,11 +1016,18 @@ def phase_timing(card, trace, dev, results):
             kway.route(cfg, qkeys.reshape(-1)[enabled.reshape(-1)])[1]).numel())
         b3 = (qkeys.numel() * 5 + touched * lanes_read(cfg.policy) * row
               + len(kway.STATE_LANES) * NUM_SETS * row + 8 * chunks.shape[0])
-        ms = cuda_ms(lambda: krp.replay_resident(cfg, st0, qkeys, enabled), 3)
-        line = (f"replay_resident {name} n={n} B={BATCH}: {ms:.3f} ms/launch"
-                f" ({n / ms * 1e3:.0f} requests/s), bound "
-                f"{b3 / HBM_BYTES_PER_S * 1e3:.4f} ms ({b3} B; {touched} "
-                f"of {NUM_SETS} sets touched)")
+        _, ms, dev_ms = time_replay_trace(cfg, st0, qkeys, enabled)
+        bucket_ms, bucket_dev = time_bucketing(cfg, qkeys, enabled)
+        bound = b3 / HBM_BYTES_PER_S * 1e3
+        line = (f"replay_resident {name} n={n} B={BATCH}, owners form: "
+                f"{ms:.3f} ms per call (CUDA events, mean of 5; "
+                f"{n / ms * 1e3:.0f} requests/s), device time "
+                f"{fmt_ms(dev_ms)} (torch.profiler, bucketing + replay "
+                f"kernels), bound {bound:.4f} ms ({b3} B; {touched} of "
+                f"{NUM_SETS} sets touched), bound share "
+                f"{fmt_share(dev_ms and bound / dev_ms)}; bucketing alone "
+                f"{bucket_ms:.3f} ms per call ({bucket_ms / ms:.1%} of the "
+                f"call), device {fmt_ms(bucket_dev)}")
         if name != "LRU":
             say(card, line + "; library_ms: none")
             continue
@@ -931,19 +1037,23 @@ def phase_timing(card, trace, dev, results):
                         warmup=False)
         chunked = cuda_ms(lambda: be.replay_scan(st0, chunks, en_c), 1,
                           warmup=False)
-        say(card, line + f", plain (torch twin) {plain:.3f} ms "
-                  f"({n / plain * 1e3:.0f} requests/s), cuda chunked path "
-                  f"{chunked:.3f} ms ({n / chunked * 1e3:.0f} requests/s); "
-                  f"library_ms: none")
+        grids = kernel_grids(lambda: krp.replay_resident(cfg, st0, qkeys,
+                                                         enabled),
+                             "owners_kernel")
+        if grids and max(grids) <= 1:
+            raise AssertionError(f"owners form ran on grid {grids}")
+        say(card, line + f"; owners kernel grid {grids or 'not in the trace'}"
+                  f" blocks of {krp.num_owners(NUM_SETS)} owners; plain "
+                  f"(torch twin) {plain:.3f} ms ({n / plain * 1e3:.0f} "
+                  f"requests/s), cuda chunked path {chunked:.3f} ms "
+                  f"({n / chunked * 1e3:.0f} requests/s); library_ms: none")
+        say_previous(card, "replay_resident")
         chunked_busy_share(card, be, st0, chunks[:64], en_c[:64])
-        dev_ms = profiled_device_ms(
-            lambda: krp.replay_resident(cfg, st0, qkeys, enabled), 1,
-            ("replay_kernel",))
-        say(card, f"replay_resident {name}: kernel device time "
-                  f"{fmt_ms(dev_ms)} (torch.profiler)")
         results["replay_resident"].update(
-            ms=ms, plain_ms=plain, device_ms=dev_ms,
-            bound_ms=b3 / HBM_BYTES_PER_S * 1e3)
+            ms=ms, plain_ms=plain, device_ms=dev_ms, bound_ms=bound,
+            bucket_ms=bucket_ms, bucket_device_ms=bucket_dev,
+            blocks=grids[0] if grids else None, form="owners",
+            requests_per_s=n / ms * 1e3)
         b3_lru = b3
 
     # kernel 3's TinyLFU branch (LRU, for_capacity(2^20)): kernel 3's bytes
@@ -959,21 +1069,62 @@ def phase_timing(card, trace, dev, results):
     cwords = int(torch.unique(rows * (tl.width // 8) + word).numel())
     dwords = int(torch.unique(admission._door_pos(tl, uniq)[0]).numel())
     bt = b3_lru + 2 * 4 * (cwords + dwords + 1)
-    run = lambda: krp.replay_resident(cfg, st0, qkeys, enabled,  # noqa: E731
-                                      tinylfu=tl)
-    ms = cuda_ms(run, 3)
-    dev_ms = profiled_device_ms(run, 1, ("replay_kernel",))
+    form = krp.replay_form(BATCH, True)
+    _, ms, dev_ms = time_replay_trace(cfg, st0, qkeys, enabled, tinylfu=tl)
+    bucket_ms = results["replay_resident"]["bucket_ms"]
+    grids = kernel_grids(lambda: krp.replay_resident(cfg, st0, qkeys, enabled,
+                                                     tinylfu=tl),
+                         "grid_kernel")
+    bound = bt / HBM_BYTES_PER_S * 1e3
     r = results["replay_resident_tinylfu"]
-    r.update(ms=ms, device_ms=dev_ms, bound_ms=bt / HBM_BYTES_PER_S * 1e3)
-    say(card, f"replay_resident TinyLFU LRU n={n} B={BATCH}: {ms:.3f} "
-              f"ms/launch ({n / ms * 1e3:.0f} requests/s), device time "
-              f"{fmt_ms(dev_ms)} (torch.profiler), bound "
-              f"{bt / HBM_BYTES_PER_S * 1e3:.4f} ms ({bt} B; {cwords} counter "
-              f"and {dwords} door words touched), plain (torch twin, phase "
-              f"4) {r['plain_ms']:.3f} ms ({n / r['plain_ms'] * 1e3:.0f} "
-              f"requests/s), cuda chunked path {r['chunked_ms']:.3f} ms "
+    r.update(ms=ms, device_ms=dev_ms, bound_ms=bound, form=form,
+             blocks=grids[0] if grids else None,
+             bucket_share=bucket_ms / ms, requests_per_s=n / ms * 1e3)
+    say(card, f"replay_resident TinyLFU LRU n={n} B={BATCH}, {form} form: "
+              f"{ms:.3f} ms per call (CUDA events, mean of 5; "
+              f"{n / ms * 1e3:.0f} requests/s), device time {fmt_ms(dev_ms)} "
+              f"(torch.profiler), grid {grids or 'not in the trace'} blocks, "
+              f"bound {bound:.4f} ms ({bt} B; {cwords} counter and {dwords} "
+              f"door words touched), bound share "
+              f"{fmt_share(dev_ms and bound / dev_ms)}, bucketing (timed "
+              f"above) {bucket_ms / ms:.1%} of the call; plain (torch twin, "
+              f"phase 4) {r['plain_ms']:.3f} ms "
+              f"({n / r['plain_ms'] * 1e3:.0f} requests/s), cuda chunked "
+              f"path {r['chunked_ms']:.3f} ms "
               f"({n / r['chunked_ms'] * 1e3:.0f} requests/s); hit ratio "
               f"{r['hit_ratio']!r}; library_ms: none")
+    say_previous(card, "replay_resident_tinylfu")
+
+    # the TinyLFU forms at narrow chunks: grid against block, equal
+    narrow = {}
+    rule = krp.TL_GRID_MIN_BATCH
+    try:
+        for b in TL_NARROW_BATCHES:
+            nch, nen = router.pad_chunks(trace[:TL_NARROW_N], b)
+            nq = hashing.key_tensor(nch, dev)
+            ne = torch.from_numpy(nen).to(dev)
+            outs, times = {}, {}
+            for f, limit in (("grid", 1), ("block", krp.MAX_BATCH + 1)):
+                krp.TL_GRID_MIN_BATCH = limit
+                outs[f], f_ms, f_dev = time_replay_trace(cfg, st0, nq, ne,
+                                                         tinylfu=tl, reps=2)
+                times[f] = (f_ms, f_dev)
+            g, k = outs["grid"], outs["block"]
+            d = max_abs_err([(g[0], k[0]), (g[1], k[1])]
+                            + state_pairs(g[2], k[2]) + sketch_pairs(g[3], k[3]))
+            if d:
+                raise AssertionError(f"TinyLFU grid form != block form at "
+                                     f"B={b} (err {d})")
+            narrow[b] = {f: t[0] for f, t in times.items()}
+            say(card, f"replay_resident TinyLFU forms, first {TL_NARROW_N} "
+                      f"requests at B={b}: grid {times['grid'][0]:.3f} ms per "
+                      f"call (device {fmt_ms(times['grid'][1])}), block "
+                      f"{times['block'][0]:.3f} ms (device "
+                      f"{fmt_ms(times['block'][1])}); equal exactly; the rule "
+                      f"runs {'grid' if b >= rule else 'block'}")
+    finally:
+        krp.TL_GRID_MIN_BATCH = rule
+    r["narrow_ms"] = narrow
 
     # kernel 4 over the whole trace (LRU, L1 512 x 16 over the empty L2),
     # bounded as in phase_hier_kernel; its plain version walks lanes one at
@@ -1550,6 +1701,7 @@ def main() -> int:
     for phase, args in (
             (phase_probe_kernels, (trace, dev, results)),
             (phase_replay_kernel, (trace, ttl_trace, dev, results)),
+            (phase_skew_kernel, (trace, dev, results)),
             (phase_tinylfu_kernel, (trace, dev, results)),
             (phase_hier_kernel, (trace, ttl_trace, dev, results)),
             (phase_quick_records, (dev,)),
@@ -1578,9 +1730,11 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r.get("bound_by", "bytes"),
             "library_ms": r.get("library_ms"),
             **{k: v for k, v in r.items()
-               if k in ("requests", "tol", "host_ms", "bound_share", "split")
+               if k in ("requests", "tol", "host_ms", "bound_share", "split",
+                        "form", "blocks", "requests_per_s", "bucket_share")
                or k.startswith(("full_", "serve_", "gqa_", "max_abs_err_",
-                                "layer0_", "global_"))}})
+                                "layer0_", "global_", "bucket_", "skew_",
+                                "narrow_"))}})
     print("kernels " + ", ".join(
         f"{k['name']}: launches={k['launches']} exact={k['exact']} "
         f"ms={k['ms']:.4f}" for k in kernels) + f" [{card}]")

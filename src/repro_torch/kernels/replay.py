@@ -6,7 +6,14 @@ kernel ``repro/kernels/replay.py`` ``replay_resident`` with its flat, TTL
 and TinyLFU branches.  Its plain version is the chunked loop over the torch
 twin's ``kway.access`` (``kway.replay_chunks``; with TinyLFU
 ``admission.replay_chunks``: record -> peek -> admit -> access), which the
-``torch`` backend's ``CacheBackend.replay`` runs too.
+``torch`` backend's ``CacheBackend.replay`` runs too.  The chunked
+semantics split exactly by set, so kernel 3 replays set ranges (owners of
+``2**owner_shift(S)`` sets) in parallel: ``bucket_lanes`` groups the
+enabled lanes by owner (a stable counting sort on the card), then one warp
+per owner walks its lanes (the ``"owners"`` form, flat and TTL), or, with
+TinyLFU, a cooperative grid synchronises once per phase of each chunk (the
+``"grid"`` form); chunks narrower than ``TL_GRID_MIN_BATCH`` run TinyLFU in
+one thread block (the ``"block"`` form).  ``replay_form`` decides by shape.
 
 Kernel 4 (``replay_hierarchical``, ``csrc/replay_hier.cu``) replaces the
 Pallas TPU kernel ``replay_hierarchical``: the exclusive L1-over-L2 replay.
@@ -35,9 +42,22 @@ from repro_torch.core import admission, hashing, hierarchy, kway
 from repro_torch.kernels import _build
 from repro_torch.kernels.kway_probe import MAX_WAYS
 
-#: Most lanes per chunk: the chunk's lanes are staged in shared memory
-#: (14 B each, within the 227 KB a block can use).
+#: Most lanes per chunk: kernel 3's block form stages a chunk's lanes in
+#: shared memory (14 B each, within the 227 KB a block can use).
 MAX_BATCH = 16384
+#: Kernel 3's owners: ranges of 2**owner_shift(S) consecutive sets, at
+#: least 2**OWNER_SHIFT_MIN sets each and at most MAX_OWNERS of them (the
+#: bucketing counts owners in 32 KiB of shared memory).
+OWNER_SHIFT_MIN = 4
+MAX_OWNERS = 2**13
+#: Lanes per segment of kernel 3's bucketing (at least; at most
+#: MAX_SEGMENTS segments, so its (segment, owner) counts stay <= 32 MiB).
+BUCKET_SEGMENT = 4096
+MAX_SEGMENTS = 1024
+#: TinyLFU chunks of fewer lanes run in kernel 3's one-block form: below
+#: it, two grid barriers per chunk cost more than one SM walking the chunk
+#: (measured on an H100 by chip_smoke.py; PERF.md section 6).
+TL_GRID_MIN_BATCH = 16
 #: L2 rows kernel 4 copies ahead of its chain (``kRing`` of
 #: ``csrc/replay_hier.cu``), 6 int32 lanes of 32 x NJ ways each.
 HIER_RING = 8
@@ -46,11 +66,13 @@ _TRACE_COUNTS: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+#: kernel 3's forms, by their number in csrc/replay.cu
+_FORMS = ("owners", "grid", "block")
 
 
 def trace_counts() -> dict:
     """Launch tally keyed by ("launch", policy, S, ways, steps, batch, ttl,
-    tinylfu) for kernel 3 and ("launch-hier", policy, l1_sets, l1_ways,
+    tinylfu, form) for kernel 3 (form: ``replay_form``) and ("launch-hier", policy, l1_sets, l1_ways,
     l2_sets, l2_ways, steps, batch, promote, demote, ttl) for kernel 4."""
     return dict(_TRACE_COUNTS)
 
@@ -70,7 +92,7 @@ def launches(kind: str = "flat") -> int:
     def match(key):
         if kind == "hier":
             return key[0] == "launch-hier"
-        return key[0] == "launch" and key[-1] == (kind == "tinylfu")
+        return key[0] == "launch" and key[7] == (kind == "tinylfu")
 
     return sum(n for key, n in _TRACE_COUNTS.items() if match(key))
 
@@ -78,8 +100,10 @@ def launches(kind: str = "flat") -> int:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("replay")
-    lib.replay_launch.argtypes = ([_P] * 11 + [_I] * 5 + [_P] * 8 + [_I] * 3
-                                  + [_P])
+    lib.replay_bucket_launch.argtypes = [_P] * 3 + [_I] * 6 + [_P] * 9
+    lib.replay_bucket_launch.restype = _I
+    lib.replay_launch.argtypes = ([_P] * 11 + [_I] * 6 + [_P] * 7 + [_I] * 3
+                                  + [_P] * 7 + [_I] * 3 + [_P])
     lib.replay_launch.restype = _I
     return lib
 
@@ -120,6 +144,105 @@ def hier_l1_form(cfg: kway.KWayConfig, hier, expiry: bool, device) -> str:
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def owner_shift(num_sets: int) -> int:
+    """log2 of the sets per owner of kernel 3: 16 sets, or more when there
+    would be more than ``MAX_OWNERS`` owners (131072 sets: 8192 owners)."""
+    return max(OWNER_SHIFT_MIN,
+               num_sets.bit_length() - MAX_OWNERS.bit_length())
+
+
+def num_owners(num_sets: int) -> int:
+    return max(1, num_sets >> owner_shift(num_sets))
+
+
+def replay_form(batch: int, tinylfu: bool) -> str:
+    """Kernel 3's form for chunks of ``batch`` lanes (a rule on shape: every
+    form computes the same): ``"owners"`` without TinyLFU, with it
+    ``"grid"``, or ``"block"`` below ``TL_GRID_MIN_BATCH`` lanes."""
+    if not tinylfu:
+        return "owners"
+    return "grid" if batch >= TL_GRID_MIN_BATCH else "block"
+
+
+@dataclasses.dataclass
+class Buckets:
+    """The enabled lanes of a [T, B] trace grouped by owner: positions
+    ``start[o]:start[o+1]`` hold owner o's lanes in (t, i) order, each as its
+    flat index ``t*B+i`` (``lane``), key and set; positions from
+    ``start[-1]`` on are unspecified.  ``pos[t*B+i]`` is the position of an
+    enabled lane (unspecified for the others).  ``live``: enabled lanes per
+    chunk."""
+
+    lane: torch.Tensor   # int32 [T*B]
+    key: torch.Tensor    # int32 [T*B]
+    set: torch.Tensor    # int32 [T*B]
+    pos: torch.Tensor    # int32 [T*B]: each enabled lane's position
+    start: torch.Tensor  # int32 [owners + 1]
+    live: torch.Tensor   # int32 [T]
+
+
+def bucket_segment(n: int) -> int:
+    """Lanes per segment of the bucketing kernel for ``n`` lanes."""
+    per = -(-n // MAX_SEGMENTS)
+    return max(BUCKET_SEGMENT, -(-per // 32) * 32)
+
+
+def bucket_lanes_ref(qk, sets, enabled, num_sets: int) -> Buckets:
+    """Plain version of kernel 3's bucketing: a stable sort of the enabled
+    lanes by owner.  ``qk`` / ``sets`` int32 [T, B] (sanitized keys and
+    their sets), ``enabled`` bool [T, B]."""
+    steps, batch = qk.shape
+    shift, owners = owner_shift(num_sets), num_owners(num_sets)
+    en = enabled.reshape(-1)
+    own = sets.reshape(-1).to(torch.int64) >> shift
+    order = torch.sort(torch.where(en, own, owners), stable=True).indices
+    m = int(en.sum())
+    lane = torch.full_like(en, -1, dtype=torch.int32)
+    lane[:m] = order[:m].to(torch.int32)
+    pick = lane[:m].long()
+    key = torch.zeros_like(lane)
+    key[:m] = qk.reshape(-1)[pick]
+    st = torch.zeros_like(lane)
+    st[:m] = sets.reshape(-1)[pick].to(torch.int32)
+    pos = torch.zeros_like(lane)
+    pos[pick] = torch.arange(m, dtype=torch.int32)
+    start = torch.zeros(owners + 1, dtype=torch.int32, device=qk.device)
+    start[1:] = torch.cumsum(torch.bincount(own[en], minlength=owners), 0)
+    return Buckets(lane=lane, key=key, set=st, pos=pos, start=start,
+                   live=enabled.sum(1, dtype=torch.int32))
+
+
+def bucket_lanes(qk, sets, enabled, num_sets: int) -> Buckets:
+    """Kernel 3's bucketing (``replay_bucket_launch``: a stable counting
+    sort on the card), or its plain version on CPU tensors."""
+    if qk.device.type == "cpu":
+        return bucket_lanes_ref(qk, sets, enabled, num_sets)
+    steps, batch = qk.shape
+    n = steps * batch
+    dev = qk.device
+    shift, owners = owner_shift(num_sets), num_owners(num_sets)
+    seg = bucket_segment(n)
+    out = Buckets(lane=torch.empty(n, dtype=torch.int32, device=dev),
+                  key=torch.empty(n, dtype=torch.int32, device=dev),
+                  set=torch.empty(n, dtype=torch.int32, device=dev),
+                  pos=torch.empty(n, dtype=torch.int32, device=dev),
+                  start=torch.empty(owners + 1, dtype=torch.int32,
+                                    device=dev),
+                  live=torch.empty(steps, dtype=torch.int32, device=dev))
+    cnt = torch.empty(-(-n // seg) * owners, dtype=torch.int32, device=dev)
+    tot = torch.empty(owners, dtype=torch.int32, device=dev)
+    qk = qk.to(torch.int32).contiguous()
+    sets = sets.to(torch.int32).contiguous()
+    en = enabled.to(torch.bool).contiguous()
+    rc = _lib().replay_bucket_launch(
+        _ptr(qk), _ptr(sets), _ptr(en), n, steps, batch, seg, owners, shift,
+        _ptr(cnt), _ptr(tot), _ptr(out.live), _ptr(out.lane), _ptr(out.key),
+        _ptr(out.set), _ptr(out.pos), _ptr(out.start),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "replay_resident bucketing")
+    return out
 
 
 def _check_ttl_tinylfu(ttls, tinylfu):
@@ -202,13 +325,16 @@ def replay_resident(cfg: kway.KWayConfig, state: kway.KWayState, qkeys,
     qk, sets = kway.route(cfg, qkeys.reshape(-1))
     qk = qk.contiguous()
     sets = sets.to(torch.int32).contiguous()
+    form = replay_form(batch, tinylfu is not None)
+    bk = None
+    if form != "block":
+        bk = bucket_lanes(qk.view(steps, batch), sets.view(steps, batch),
+                          en.view(steps, batch), cfg.num_sets)
     lanes, exp = _lanes(state, cfg.num_sets, cfg.ways)
-    winner = torch.full((cfg.num_sets * cfg.ways,), -1, dtype=torch.int32,
-                        device=dev)
     hits = torch.empty(steps, dtype=torch.int32, device=dev)
     evs = torch.empty_like(hits)
     clock = state.clock.to(torch.int32).reshape(1).contiguous()
-    sk = door_win = rec = None
+    sk = door_win = rec = work = None
     sk_ptrs = (None, None, None)
     width = door_bits = sample = 0
     if tinylfu is not None:
@@ -225,20 +351,29 @@ def replay_resident(cfg: kway.KWayConfig, state: kway.KWayState, qkeys,
         door_win = torch.full_like(sk.door, -1)
         rec = torch.empty(admission.ROWS * batch, dtype=torch.int32,
                           device=dev)
+        if form == "grid":  # two chunks' work lists and their counts
+            work = torch.empty(2 * batch + 2, dtype=torch.int32, device=dev)
         sk_ptrs = (_ptr(sk.packed), _ptr(sk.door), _ptr(sk.additions))
         width, door_bits, sample = (tinylfu.width, tinylfu.door_bits,
                                     tinylfu.sample)
 
+    shift = owner_shift(cfg.num_sets)
+    # inserting lanes a group can list: at most `ways` per set of its owner
+    cap = min(batch, cfg.ways << shift)
     rc = _lib().replay_launch(
         _ptr(lanes["keys"]), _ptr(lanes["fprint"]), _ptr(lanes["vals"]),
         _ptr(lanes["meta_a"]), _ptr(lanes["meta_b"]), _ptr(exp), _ptr(clock),
         _ptr(qk), _ptr(sets), _ptr(en), _ptr(tt), steps, batch, cfg.ways,
-        cfg.num_sets, int(cfg.policy), _ptr(winner), _ptr(hits), _ptr(evs),
+        cfg.num_sets, int(cfg.policy), _FORMS.index(form),
+        *((None,) * 6 if bk is None else
+          (_ptr(bk.lane), _ptr(bk.key), _ptr(bk.set), _ptr(bk.start),
+           _ptr(bk.live), _ptr(bk.pos))), _ptr(work),
+        num_owners(cfg.num_sets), shift, cap, _ptr(hits), _ptr(evs),
         *sk_ptrs, _ptr(door_win), _ptr(rec), width,
         door_bits, sample, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "replay_resident")
     _TRACE_COUNTS[("launch", int(cfg.policy), cfg.num_sets, cfg.ways, steps,
-                   batch, exp is not None, tinylfu is not None)] += 1
+                   batch, exp is not None, tinylfu is not None, form)] += 1
     out = dataclasses.replace(
         state, **lanes, expiry=exp,
         clock=state.clock + 2 * batch * steps)

@@ -111,31 +111,104 @@ def _assert_states_equal(a, b, what):
             _eq(x, y, f"{what}: {f}")
 
 
+def _kernel3_equal(cfg, dev, chunks, en, form="owners", **kw):
+    """Kernel 3 (one launch, in ``form``) == the torch twin == the cuda
+    chunked path: per-chunk counts, state and sketch.  -> kernel's out."""
+    cb = make_backend("cuda", cfg, dev)
+    tb = make_backend("torch", cfg, dev)
+    init = dict(ttl=True) if kw.get("ttls") is not None else {}
+    krp.reset_trace_counts()
+    got = cb.replay(cb.init(**init), chunks, en, **kw)
+    torch.cuda.synchronize()
+    tl = kw.get("tinylfu") is not None
+    assert krp.trace_counts() == {
+        ("launch", int(cfg.policy), cfg.num_sets, cfg.ways, chunks.shape[0],
+         chunks.shape[1], bool(init), tl, form): 1}
+    assert krp.launches("tinylfu" if tl else "flat") == 1
+    for want, what in ((tb.replay(tb.init(**init), chunks, en, **kw),
+                        "torch twin"),
+                       (cb.replay_scan(cb.init(**init), chunks, en, **kw),
+                        "cuda scan")):
+        _eq(got[0], want[0], f"{what}: per-chunk hits")
+        _eq(got[1], want[1], f"{what}: per-chunk evictions")
+        _assert_states_equal(got[2], want[2], what)
+        if tl:
+            _assert_sketch_equal(got[3], want[3], what)
+    return got
+
+
 @pytest.mark.parametrize("policy", ALL_POLICIES)
 @pytest.mark.parametrize("ways,batch", [(1, 50), (4, 64), (8, 1), (8, 333),
                                         (32, 96), (8, 4100)])
 def test_replay_kernel_matches_chunked_twin(cuda, policy, ways, batch):
-    """Batches above 1024 lanes make threads stride; above 3510 the chunk's
-    shared memory passes 48 KB and needs the opt-in attribute."""
+    """Groups (an owner's lanes of one chunk) of more than 32 lanes at B 333
+    and 4100 walk the owner's list of inserting lanes across sub-batches."""
     cfg = KWayConfig(num_sets=32, ways=ways, policy=policy)
     tr = traces.generate("zipf", max(4000, 6 * batch), seed=ways,
                          catalog=cfg.capacity * 3)
     chunks, en = router.pad_chunks(tr, batch)
-    cb = make_backend("cuda", cfg, cuda)
-    krp.reset_trace_counts()
-    h1, e1, s1, _ = cb.replay(cb.init(), chunks, en)
-    torch.cuda.synchronize()
-    assert krp.trace_counts() == {
-        ("launch", int(policy), 32, ways, chunks.shape[0], batch, False,
-         False): 1}
-    tb = make_backend("torch", cfg, cuda)
-    h2, e2, s2, _ = tb.replay(tb.init(), chunks, en)
-    h3, e3, s3, _ = cb.replay_scan(cb.init(), chunks, en)
-    for h, e, s, what in ((h2, e2, s2, "torch twin"), (h3, e3, s3, "cuda scan")):
-        _eq(h1, h, f"{what}: per-chunk hits")
-        _eq(e1, e, f"{what}: per-chunk evictions")
-        _assert_states_equal(s1, s, what)
+    h1, e1, _, _ = _kernel3_equal(cfg, cuda, chunks, en)
     assert int(e1.sum()) > 0
+
+
+def _one_set_keys(cfg, n, seed):
+    """n zipf-like draws from keys that all map to set 0."""
+    cand = np.arange(1, 200 * cfg.num_sets * cfg.capacity, dtype=np.uint32)
+    sets = kway.route(cfg, torch.from_numpy(cand.view(np.int32)))[1].numpy()
+    pool = cand[sets == 0][: 4 * cfg.ways]
+    rng = np.random.default_rng(seed)
+    return pool[np.minimum(rng.zipf(1.3, n) - 1, len(pool) - 1)]
+
+
+@pytest.mark.parametrize("policy", ALL_POLICIES)
+@pytest.mark.parametrize("case", ["hot-key", "one-set", "sets-1", "sets-2",
+                                  "sets-2^17", "max-batch"])
+def test_replay_kernel_skew_and_edges(cuda, policy, case):
+    """One key half of all requests; every lane in one set; an owner of 1
+    or 2 sets; 8192 owners (131072 sets of 2 ways, so that 2^17 requests
+    evict); B = MAX_BATCH."""
+    sets, ways, batch, n = {
+        "sets-1": (1, 8, 64, 3000), "sets-2": (2, 8, 64, 3000),
+        "sets-2^17": (2**17, 2, 1024, 2**17),
+        "max-batch": (32, 8, krp.MAX_BATCH, 3 * krp.MAX_BATCH),
+    }.get(case, (32, 8, 256, 6000))
+    cfg = KWayConfig(num_sets=sets, ways=ways, policy=policy)
+    if case == "one-set":
+        tr = _one_set_keys(cfg, n, int(policy))
+    else:
+        tr = traces.generate("zipf", n, seed=int(policy),
+                             catalog=cfg.capacity * 3)
+        if case == "hot-key":
+            tr[::2] = tr[0]
+    chunks, en = router.pad_chunks(tr, batch)
+    en[-1, -3:] = False
+    h, e, _, _ = _kernel3_equal(cfg, cuda, chunks, en)
+    assert int(h.sum()) > 0 and int(e.sum()) > 0
+
+
+@pytest.mark.parametrize("num_sets", [1, 32, 2**17])
+@pytest.mark.parametrize("batch", [1, 333, krp.MAX_BATCH])
+def test_replay_bucket_kernel_matches_plain(cuda, num_sets, batch):
+    """Kernel 3's bucketing (a stable counting sort by owner) == its plain
+    version (a stable sort), on the positions that hold lanes."""
+    cfg = KWayConfig(num_sets=num_sets, ways=8)
+    n = max(20000, 3 * batch)
+    tr = traces.generate("zipf", n, seed=batch, catalog=cfg.capacity * 3)
+    chunks, en = router.pad_chunks(tr, batch)
+    en[:, ::5] = False
+    qk, sets = kway.route(cfg, hashing.key_tensor(chunks, cuda).reshape(-1))
+    qk, sets = qk.view(chunks.shape), sets.to(torch.int32).view(chunks.shape)
+    ent = torch.from_numpy(en).to(cuda)
+    got = krp.bucket_lanes(qk, sets, ent, num_sets)
+    want = krp.bucket_lanes_ref(qk.cpu(), sets.cpu(), ent.cpu(), num_sets)
+    torch.cuda.synchronize()
+    m = int(want.start[-1])
+    _eq(got.start, want.start, "start")
+    _eq(got.live, want.live, "live")
+    for f in ("lane", "key", "set"):
+        _eq(getattr(got, f)[:m], getattr(want, f)[:m], f)
+    lanes = want.lane[:m].long()
+    _eq(got.pos[lanes.to(cuda)], want.pos[lanes], "pos")
 
 
 @pytest.mark.parametrize("policy", ALL_POLICIES)
@@ -169,33 +242,27 @@ def _assert_sketch_equal(a, b, what):
 
 
 @pytest.mark.parametrize("policy", ALL_POLICIES)
-@pytest.mark.parametrize("ways,batch", [(4, 64), (8, 300), (32, 1500)])
-def test_replay_kernel_tinylfu_matches_chunked_twin(cuda, policy, ways,
-                                                   batch):
-    """Kernel 3's TinyLFU branch == the torch chunked loop (record -> peek
-    -> admit -> access) == the cuda chunked path (kernels 1 and 2), with a
+@pytest.mark.parametrize("ways,batch,n", [(4, 64, 5000), (8, 300, 5000),
+                                          (32, 1500, 6000), (8, 1, 1500),
+                                          (8, 1024, 8192)])
+@pytest.mark.parametrize("form", ["grid", "block"])
+def test_replay_kernel_tinylfu_matches_chunked_twin(cuda, monkeypatch,
+                                                   policy, ways, batch, n,
+                                                   form):
+    """Kernel 3's TinyLFU branch, in each form whatever the batch (the
+    narrow-chunk rule moved), == the torch chunked loop (record -> peek ->
+    admit -> access) == the cuda chunked path (kernels 1 and 2), with a
     sample short enough to age several times and a resumed sketch."""
+    monkeypatch.setattr(krp, "TL_GRID_MIN_BATCH",
+                        1 if form == "grid" else krp.MAX_BATCH + 1)
     cfg = KWayConfig(num_sets=32, ways=ways, policy=policy)
     tl = admission.TinyLFUConfig(width=64, door_bits=128, sample=700)
-    tr = traces.generate("zipf", max(5000, 4 * batch), seed=ways,
-                         catalog=cfg.capacity * 3)
+    tr = traces.generate("zipf", n, seed=ways, catalog=cfg.capacity * 3)
     chunks, en = router.pad_chunks(tr, batch)
+    sk0 = admission.make_sketch(tl, cuda)
+    _kernel3_equal(cfg, cuda, chunks, en, form, tinylfu=tl, sketch=sk0)
     cb = make_backend("cuda", cfg, cuda)
     tb = make_backend("torch", cfg, cuda)
-    sk0 = admission.make_sketch(tl, cuda)
-    krp.reset_trace_counts()
-    h1, e1, s1, k1 = cb.replay(cb.init(), chunks, en, tinylfu=tl, sketch=sk0)
-    torch.cuda.synchronize()
-    assert krp.launches("tinylfu") == 1 and krp.launches("flat") == 0
-    h2, e2, s2, k2 = tb.replay(tb.init(), chunks, en, tinylfu=tl, sketch=sk0)
-    h3, e3, s3, k3 = cb.replay_scan(cb.init(), chunks, en, tinylfu=tl,
-                                    sketch=sk0)
-    for h, e, s, k, what in ((h2, e2, s2, k2, "torch twin"),
-                             (h3, e3, s3, k3, "cuda scan")):
-        _eq(h1, h, f"{what}: per-chunk hits")
-        _eq(e1, e, f"{what}: per-chunk evictions")
-        _assert_states_equal(s1, s, what)
-        _assert_sketch_equal(k1, k, what)
     # resumed: the second half of the trace from the first half's state
     half = chunks.shape[0] // 2
     _, _, sa, ka = cb.replay(cb.init(), chunks[:half], en[:half], tinylfu=tl)
@@ -205,6 +272,7 @@ def test_replay_kernel_tinylfu_matches_chunked_twin(cuda, policy, ways,
     hc, ec, sc, kc = tb.replay(sc, chunks[half:], en[half:], tinylfu=tl,
                                sketch=kc)
     _eq(hb, hc, "resumed: per-chunk hits")
+    _eq(eb, ec, "resumed: per-chunk evictions")
     _assert_states_equal(sb, sc, "resumed")
     _assert_sketch_equal(kb, kc, "resumed")
 
