@@ -1,6 +1,7 @@
-"""Kernels 3, 4 and 5 and the serving path of one source tree, on one GPU.
+"""Kernels 1-5, the chunked path and the serving path of one source tree,
+on one GPU.
 
-    python3 chip_ab.py [SRC] [--label NAME]
+    python3 chip_ab.py [SRC] [--label NAME] [--sections probe,k3,k4,serve]
 
 Imports ``repro_torch`` from ``SRC`` (default: this checkout's ``src``),
 builds its kernels and, at chip_smoke.py's full-size configurations and
@@ -8,6 +9,15 @@ with its timing helpers (``time_replay_trace``, ``time_hier_trace``,
 ``drive_engine``, ``time_paged_attention``), so that both scripts time
 alike:
 
+  0. (``probe``) kernels 1 and 2 at the ops level, as the ``cuda`` backend
+     calls them (``ops.probe_orders`` and ``ops.fused_probe`` on the
+     131072 x 8 LRU state filled by the trace's first 2^20 requests, 1024
+     queries): CUDA events per call, the host's time per call and the
+     device time of all the call's device work (torch.profiler);
+     ``ops.fused_probe`` again on a 2^24-entry state (2^21 x 8), where a
+     copy of ``meta_a`` would cost 16x more; and the requests/s of the
+     chunked path (``CudaBackend.replay_scan``, LRU, 131072 x 8, B = 1024,
+     the trace's first 2^20 requests; the median of three runs);
   1. replays the whole 2^22-request zipf trace through the 131072 x 8
      cache with kernel 3, flat LRU and TinyLFU (``for_capacity(2^20)``):
      CUDA events per wrapper call (mean of 3 after a warm-up), and the
@@ -38,6 +48,61 @@ import time
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+SECTIONS = ("probe", "k3", "k4", "serve")
+#: the 2^24-entry state on which kernel 2 is timed again
+BIG_SETS = 2**21
+#: requests of the trace the chunked path replays
+CHUNKED_N = 2**20
+
+
+def probe_section(cs, out, trace, dev):
+    """Section 0: kernels 1 and 2 at the ops level, kernel 2 on a
+    2^24-entry state, the chunked path's requests/s."""
+    from repro_torch.core import hashing, router
+    from repro_torch.core.backend import make_backend
+    from repro_torch.core.kway import KWayConfig
+    from repro_torch.core.policies import Policy
+    from repro_torch.kernels import ops
+
+    prefix = router.pad_chunks(trace[:cs.PREFIX], cs.BATCH)
+    q = hashing.key_tensor(trace[cs.PREFIX:cs.PREFIX + cs.BATCH], dev)
+    en = torch.ones(cs.BATCH, dtype=torch.bool, device=dev)
+    for sets, tag in ((cs.NUM_SETS, ""), (BIG_SETS, "_2e24")):
+        cfg = KWayConfig(num_sets=sets, ways=cs.WAYS, policy=Policy.LRU)
+        st = cs.fill_state(cfg, prefix, dev)
+        out[f"fused_ops_ms{tag}"] = cs.cuda_ms(
+            lambda: ops.fused_probe(cfg, st, q, en), 200)
+        out[f"fused_ops_host_us{tag}"] = cs.host_us(
+            lambda: ops.fused_probe(cfg, st, q, en))
+        # all device activity of one ops call (the previous design's route
+        # kernels and copy of meta_a included)
+        out[f"fused_ops_device_ms{tag}"] = cs.profiled_device_ms(
+            lambda: ops.fused_probe(cfg, st, q, en), 20, ("",))
+        if tag:
+            break
+        out["orders_ops_ms"] = cs.cuda_ms(
+            lambda: ops.probe_orders(cfg, st, q), 200)
+        out["orders_ops_host_us"] = cs.host_us(
+            lambda: ops.probe_orders(cfg, st, q))
+        out["orders_ops_device_ms"] = cs.profiled_device_ms(
+            lambda: ops.probe_orders(cfg, st, q), 20, ("",))
+        del st
+    del st
+    torch.cuda.empty_cache()
+
+    cfg = KWayConfig(num_sets=cs.NUM_SETS, ways=cs.WAYS, policy=Policy.LRU)
+    be = make_backend("cuda", cfg, dev)
+    chunks, cen = router.pad_chunks(trace[:CHUNKED_N], cs.BATCH)
+    be.replay_scan(be.init(), chunks[:8], cen[:8])
+    # host-bound, so it varies: three runs, the median reported
+    runs = [cs.timed(lambda: be.replay_scan(be.init(), chunks, cen))
+            for _ in range(3)]
+    (hits, evs, _, _), _ = runs[0]
+    all_ms = [ms for _, ms in runs]
+    ms = sorted(all_ms)[1]
+    out.update(chunked_ms=ms, chunked_runs_ms=all_ms,
+               chunked_requests_per_s=CHUNKED_N / ms * 1e3,
+               chunked_hits=int(hits.sum()), chunked_evictions=int(evs.sum()))
 
 
 def main(argv=None) -> int:
@@ -45,7 +110,11 @@ def main(argv=None) -> int:
     ap.add_argument("src", nargs="?", default=os.path.join(HERE, "src"))
     ap.add_argument("--label", default="")
     ap.add_argument("--runs", type=int, default=2)
+    ap.add_argument("--sections", default=",".join(SECTIONS))
     args = ap.parse_args(argv)
+    sections = args.sections.split(",")
+    if not set(sections) <= set(SECTIONS):
+        ap.error(f"sections must be among {SECTIONS}")
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -70,6 +139,8 @@ def main(argv=None) -> int:
     trace = traces.generate(cs.TRACE["family"], cs.TRACE["n"],
                             seed=cs.TRACE["seed"], catalog=cs.TRACE["catalog"],
                             alpha=cs.TRACE["alpha"])
+    if "probe" in sections:
+        probe_section(cs, out, trace, dev)
     chunks, en = router.pad_chunks(trace, cs.BATCH)
     qkeys = hashing.key_tensor(chunks, dev)
     enabled = torch.from_numpy(en).to(dev)
@@ -81,6 +152,8 @@ def main(argv=None) -> int:
     for label, tl in (("flat", None),
                       ("tinylfu", admission.for_capacity(cs.NUM_SETS
                                                          * cs.WAYS))):
+        if "k3" not in sections:
+            break
         (hits, evs, _, _), ms, dev_ms = cs.time_replay_trace(
             cfg, st0, qkeys, enabled, tinylfu=tl, reps=3)
         out.update({f"k3_{label}_ms": ms, f"k3_{label}_device_ms": dev_ms,
@@ -88,13 +161,19 @@ def main(argv=None) -> int:
                     f"k3_{label}_evictions": int(evs.sum())})
 
     # 2. kernel 4 over the whole trace
-    hc = hierarchy.HierarchyConfig(l1_sets=cs.HIER_L1_SETS,
-                                   l1_ways=cs.HIER_L1_WAYS)
-    hst = hierarchy.make_hier(cfg, hc, device=dev)
-    (hits, _, _, _), ms, dev_ms = cs.time_hier_trace(cfg, hc, hst, qkeys,
-                                                     enabled)
-    out.update(hier_ms=ms, hier_device_ms=dev_ms, hier_hits=int(hits.sum()))
-    del qkeys, enabled, hst, st0
+    if "k4" in sections:
+        hc = hierarchy.HierarchyConfig(l1_sets=cs.HIER_L1_SETS,
+                                       l1_ways=cs.HIER_L1_WAYS)
+        hst = hierarchy.make_hier(cfg, hc, device=dev)
+        (hits, _, _, _), ms, dev_ms = cs.time_hier_trace(cfg, hc, hst, qkeys,
+                                                         enabled)
+        out.update(hier_ms=ms, hier_device_ms=dev_ms,
+                   hier_hits=int(hits.sum()))
+        del hst
+    del qkeys, enabled, st0
+    if "serve" not in sections:
+        print(json.dumps(out))
+        return 0
 
     # 3. serving at full width
     scfg = cs.serve_config()

@@ -10,9 +10,12 @@ serving slice:
 
   1. prints the card, its power limit and ptxas' register/shared-memory
      report of every kernel;
-  2. holds kernels 1 and 2 (``kway_probe``, ``kway_fused_probe``) to their
-     plain torch versions on a full-size state, all 5 policies, every
-     variant — exactly;
+  2. holds kernels 1 and 2 (``kway_probe``, ``kway_fused_probe``: one
+     launch each, the route inside) to their plain torch versions on a
+     full-size state, all 5 policies, every variant, on the raw keys of a
+     1024-query and a 16384-query batch — exactly, in the same dtypes, and
+     kernel 2 leaving meta_a as it was; and counts the device kernels of
+     one ``ops.fused_probe`` call with torch.profiler (it must be 1);
   3. holds kernel 3 (``replay_resident``) to the chunked torch twin and to
      the ``cuda`` backend's chunked path (kernel 2 + torch apply): per-chunk
      hits and evictions and the final state, exactly; LRU at full size,
@@ -44,7 +47,14 @@ serving slice:
   8. times each kernel beside its bound and its plain version: CUDA events
      around wrapper calls (what a caller pays, host overhead included) and
      the kernels' own device time from torch.profiler; and the requests/s
-     of the resident, chunked and hierarchical replays.  Kernel 3 (flat and
+     of the resident, chunked and hierarchical replays.  Kernels 1 and 2
+     also at the ops level (``ops.probe_orders``, ``ops.fused_probe``: what
+     the main path pays a call), with the host's time of one call split
+     into its pieces (``probe_split``); and at 1024, 16384 and 2^24
+     queries (the most a call takes; there held to the plain versions),
+     with kernel 2's device time split into its phases by a measurement
+     build (``-DKWAY_PHASE_CLOCKS``, built beside the library).  Kernel 3
+     (flat and
      TinyLFU, whole trace) also reports its bucketing alone and its share,
      the grid its owners form ran on (from the profiler's trace: more than
      one block), and its TinyLFU forms at narrow chunks (grid against
@@ -70,8 +80,8 @@ serving slice:
      (as a decode step runs them) beside its bound, the wrapper's host
      time and ``scaled_dot_product_attention`` on the same K/V
      pre-gathered; and on layer 0 alone, as the previous design was
-     timed.  Kernels 3, 4 and 5 print their previous designs' figures on a
-     line of their own, as constants (not in the JSON summary).
+     timed.  Each kernel prints its previous design's figures on a line of
+     its own, as constants (not in the JSON summary).
 
 Any mismatch or failure exits non-zero; no phase's failure is caught.  The
 last two lines are the per-kernel JSON summary (6 entries) and the device
@@ -153,14 +163,21 @@ GQA_CASE = dict(b=8, kvh=4, g=2, d=256, softcap=50.0, pages=1024, page=16,
                 pps=64)
 #: kernel 5's tolerances against its plain version (the reference's own)
 PA_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
-#: the figures of kernels 3, 4 and 5 in their previous designs (kernel 3
-#: one thread block, kernel 4 with both tiers in HBM, kernel 5 one CTA per
-#: sequence and KV head): constants, measured by this script on an NVIDIA
-#: H100 80GB HBM3 at 700.00 W (PERF.md section 6); kernel 3 on the whole
-#: trace (LRU; TinyLFU for_capacity(2^20)), kernel 4 on its 2^14-request
-#: check inputs and (full_) the whole trace, kernel 5 on layer 0 of the
-#: captured decode step
+#: the figures of kernels 1-5 in their previous designs (kernels 1 and 2
+#: the keys routed in torch before the wrapper, kernel 2 two launches on a
+#: copy of meta_a; kernel 3 one thread block, kernel 4 with both tiers in
+#: HBM, kernel 5 one CTA per sequence and KV head): constants, measured by
+#: this script (kernels 1 and 2's ops_* by chip_ab.py on the previous
+#: design's tree) on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section
+#: 6); kernels 1 and 2 at 1024 queries on the full-size state, kernel 3 on
+#: the whole trace (LRU; TinyLFU for_capacity(2^20)), kernel 4 on its
+#: 2^14-request check inputs and (full_) the whole trace, kernel 5 on layer
+#: 0 of the captured decode step
 PREV_DESIGN = {
+    "kway_probe": dict(ms=0.0427, device_ms=0.0038, ops_ms=0.4855,
+                       ops_host_us=474.6),
+    "kway_fused_probe": dict(ms=0.0645, device_ms=0.0055, ops_ms=0.5126,
+                             ops_host_us=495.5),
     "replay_resident": dict(ms=653.18, device_ms=651.70),
     "replay_resident_tinylfu": dict(ms=601.47, device_ms=600.25),
     "replay_hierarchical": dict(ms=29.444, device_ms=29.229,
@@ -373,12 +390,31 @@ def fmt_share(x) -> str:
 # phases
 # ---------------------------------------------------------------------------
 
+#: the measurement build of kernels 1 and 2 (``-DKWAY_PHASE_CLOCKS``: kernel
+#: 2's CTAs stamp clock64() at each phase), made beside the library
+PHASE_CLOCKS_SO = {}
+
+
 def phase_build(card):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build_all()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = _build.BUILD_DIR / f"kway_probe-clocks-{_build._digest()}.so"
+    clocks = subprocess.Popen(
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-DKWAY_PHASE_CLOCKS", "-o",
+         str(so), str(_build.CSRC / "kway_probe.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        _build.build_all()
+    finally:
+        out, _ = clocks.communicate()
+    if clocks.returncode:
+        raise RuntimeError(f"kway_probe.cu -DKWAY_PHASE_CLOCKS: nvcc exit "
+                           f"{clocks.returncode}\n{out}")
+    PHASE_CLOCKS_SO["path"] = so
     say(card, f"kernels built in {time.perf_counter() - t0:.1f} s "
-              f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+              f"(nvcc {' '.join(_build.NVCC_FLAGS)}; and kway_probe.cu "
+              f"with -DKWAY_PHASE_CLOCKS for kernel 2's phase split)")
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -395,48 +431,252 @@ def fill_state(cfg, trace_chunks, dev):
 
 
 def phase_probe_kernels(card, trace, dev, results):
-    """Kernels 1 and 2 against their plain versions, 5 policies."""
-    from repro_torch.core import hashing, kway, router
+    """Kernels 1 and 2 (one launch each, the route inside) against their
+    plain versions, 5 policies, on the raw keys of a 1024-query and a
+    MAX_BATCH-query batch; and the device kernels of one ops call."""
+    from repro_torch.core import hashing, router
     from repro_torch.core.kway import KWayConfig
     from repro_torch.core.policies import Policy
     from repro_torch.kernels import kway_probe as kp
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import replay as krp
 
     prefix = router.pad_chunks(trace[:PREFIX], BATCH)
-    q = hashing.key_tensor(trace[PREFIX:PREFIX + BATCH], dev)
-    en = torch.from_numpy(np.random.default_rng(0).random(BATCH) < 0.9).to(dev)
+    rng = np.random.default_rng(0)
+    batches = []
+    for b in (BATCH, krp.MAX_BATCH):
+        q = hashing.key_tensor(trace[PREFIX:PREFIX + b], dev)
+        batches.append((q, torch.from_numpy(rng.random(b) < 0.9).to(dev)))
     err1 = err2 = 0
     for policy in Policy:
         cfg = KWayConfig(num_sets=NUM_SETS, ways=WAYS, policy=policy)
         st = fill_state(cfg, prefix, dev)
-        qk, sets = kway.route(cfg, q)
-        sets = sets.to(torch.int32)
-        tg = st.clock + torch.arange(BATCH, dtype=torch.int32, device=dev)
-        tp = tg + BATCH
+        route = dict(num_sets=cfg.num_sets, seed=cfg.seed, policy=policy)
         lanes = (st.keys, st.fprint, st.meta_a, st.meta_b)
-        for variant in ("hits", "victim", "order"):
-            kw = dict(policy=policy, full_order=variant == "order",
-                      need_victims=variant != "hits")
-            got = kp.kway_probe(*lanes, sets, qk, tg, **kw)
-            want = kref.kway_probe_ref(*lanes, sets, qk, tg, **kw)
-            e = max_abs_err(zip(got, want))
-            if e:
-                raise AssertionError(f"kway_probe {policy.name}/{variant}: "
-                                     f"max abs err {e}")
-            err1 = max(err1, e)
-        got = kp.kway_fused_probe(*lanes, sets, qk, tg, tp, en, policy=policy)
-        want = kref.kway_fused_probe_ref(*lanes, sets, qk, tg, tp, en,
-                                         policy=policy)
-        err2 = max_abs_err(zip(got, want))
-        if err2:
-            raise AssertionError(f"kway_fused_probe {policy.name}: max abs "
-                                 f"err {err2}")
-        hit_ratio = float(got[0].float().mean())
+        for q, en in batches:
+            args = (*lanes, q, st.clock)
+            for variant in ("hits", "victim", "order"):
+                kw = dict(route, full_order=variant == "order",
+                          need_victims=variant != "hits")
+                got = kp.kway_probe(*args, **kw)
+                want = kref.kway_probe_ref(*args, **kw)
+                e = max_abs_err(zip(got, want))
+                if e or [g.dtype for g in got] != [w.dtype for w in want]:
+                    raise AssertionError(f"kway_probe {policy.name}/{variant}"
+                                         f" B={len(q)}: max abs err {e}")
+                err1 = max(err1, e)
+            ma = st.meta_a.clone()
+            got = kp.kway_fused_probe(*args, en, **route)
+            want = kref.kway_fused_probe_ref(*args, en, **route)
+            e = max_abs_err(list(zip(got, want)) + [(st.meta_a, ma)])
+            if e or [g.dtype for g in got] != [w.dtype for w in want]:
+                raise AssertionError(f"kway_fused_probe {policy.name} "
+                                     f"B={len(q)}: max abs err {e}")
+            err2 = max(err2, e)
+        hit_ratio = float(got[2].float().mean())
         say(card, f"kernels 1+2 == plain on the full-size {policy.name} "
                   f"state (occupancy {int(st.occupancy())}/{cfg.capacity}, "
-                  f"{BATCH} queries, probe hit share {hit_ratio:.3f})")
-    results["kway_probe"]["max_abs_err"] = err1
-    results["kway_fused_probe"]["max_abs_err"] = err2
+                  f"raw keys of {BATCH} and {krp.MAX_BATCH} queries, "
+                  f"probe hit share {hit_ratio:.3f}; kernel 2 left meta_a "
+                  f"as it was)")
+    # one ops call is one device kernel (the route, the hits' updates and
+    # the outputs' dtypes are all inside it)
+    q, en = batches[0]
+    counts = {name: device_kernel_count(fn) for name, fn in (
+        ("probe_orders", lambda: ops.probe_orders(cfg, st, q)),
+        ("fused_probe", lambda: ops.fused_probe(cfg, st, q, en)))}
+    if counts["fused_probe"] != 1:
+        raise AssertionError(f"ops.fused_probe ran {counts['fused_probe']} "
+                             f"device kernels, not 1")
+    say(card, f"device kernels of one ops call (torch.profiler): {counts}")
+    results["kway_probe"].update(max_abs_err=err1,
+                                 ops_device_kernels=counts["probe_orders"])
+    results["kway_fused_probe"].update(
+        max_abs_err=err2, ops_device_kernels=counts["fused_probe"])
+
+
+def device_kernel_count(fn) -> int:
+    """Device activities (kernels, copies, sets) of one call of ``fn``, by
+    torch.profiler, after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and not getattr(ev, "is_user_annotation", False))
+
+
+def host_us(fn, calls: int = 200, reps: int = 7) -> float:
+    """Median over ``reps`` of the host's microseconds per call of ``fn``,
+    over ``calls`` calls issued back to back (a sync before each rep)."""
+    per = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per.append((time.perf_counter() - t0) * 1e6 / calls)
+    torch.cuda.synchronize()
+    return sorted(per)[reps // 2]
+
+
+def probe_split(cfg, st, q, en) -> dict:
+    """The host's microseconds per call of each piece of one
+    ``ops.probe_orders`` and one ``ops.fused_probe`` call (the one-launch
+    design: checks, one allocation, the current stream, the C call, the
+    outputs' views), each piece timed alone by ``host_us`` on the same
+    inputs."""
+    from repro_torch.kernels import kway_probe as kp
+    from repro_torch.kernels import ops
+
+    b, ways, dev = q.shape[0], cfg.ways, q.device
+    lanes = (st.keys, st.fprint, st.meta_a, st.meta_b)
+    lib = kp._lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    seed, pol = kp._i32(cfg.seed), int(cfg.policy)
+    ptrs = [t.data_ptr() for t in (*lanes, q)]
+    out = {}
+    for name, mode, call, launch in (
+            ("probe_orders", kp._ORDER, lambda: ops.probe_orders(cfg, st, q),
+             lambda buf: lib.kway_probe_launch(
+                 *ptrs, st.clock.data_ptr(), cfg.num_sets, seed, b, ways,
+                 pol, kp._ORDER, buf, stream)),
+            ("fused_probe", kp._FUSED,
+             lambda: ops.fused_probe(cfg, st, q, en),
+             lambda buf: lib.kway_fused_probe_launch(
+                 *ptrs, en.data_ptr(), st.clock.data_ptr(), cfg.num_sets,
+                 seed, b, ways, pol, buf, stream))):
+        words = kp._words(b, ways, mode)
+        buf = torch.empty(words, dtype=torch.int32, device=dev)
+        ptr = buf.data_ptr()
+        out[name] = dict(
+            checks=host_us(lambda: kp._check(
+                lanes, q, st.clock, en if mode == kp._FUSED else None)),
+            allocations=host_us(lambda: torch.empty(
+                words, dtype=torch.int32, device=dev)),
+            stream=host_us(lambda: torch.cuda.current_stream(dev)
+                           .cuda_stream),
+            ctypes_launch=host_us(lambda: launch(ptr)),
+            views=host_us(lambda: kp._views(buf, b, ways, mode)),
+            ops_call=host_us(call))
+    return out
+
+
+def kernel2_phases(cfg, st, q, en, reps: int = 20) -> dict:
+    """Kernel 2's device time split into its phases, from the measurement
+    build: each CTA's clock64() cycles in (1) the batch scan, (2) the
+    grouping by set, (3) the rows' lane groups, each phase ending at a
+    barrier; the median over CTAs and ``reps`` launches, and each phase's
+    share of the CTA's span.  Its outputs must equal the library's."""
+    import ctypes
+    from repro_torch.kernels import kway_probe as kp
+
+    lib = kp.declare(ctypes.CDLL(str(PHASE_CLOCKS_SO["path"])))
+    b, ways = q.shape[0], cfg.ways
+    buf = torch.empty(kp._words(b, ways, kp._FUSED), dtype=torch.int32,
+                      device=q.device)
+    host = (ctypes.c_longlong * (256 * 4))()
+    spans = []
+    for _ in range(reps):
+        _build_check(lib.kway_phase_clocks(None, 1))
+        _build_check(lib.kway_fused_probe_launch(
+            st.keys.data_ptr(), st.fprint.data_ptr(), st.meta_a.data_ptr(),
+            st.meta_b.data_ptr(), q.data_ptr(), en.data_ptr(),
+            st.clock.data_ptr(), cfg.num_sets, kp._i32(cfg.seed), b, ways,
+            int(cfg.policy), buf.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream))
+        torch.cuda.synchronize()
+        _build_check(lib.kway_phase_clocks(host, 0))
+        t = np.frombuffer(host, dtype=np.int64).reshape(256, 4)
+        spans.append(np.diff(t[t[:, 3] > 0], axis=1))
+    got = kp._views(buf, b, ways, kp._FUSED)
+    want = kp.kway_fused_probe(st.keys, st.fprint, st.meta_a, st.meta_b, q,
+                               st.clock, en, num_sets=cfg.num_sets,
+                               seed=cfg.seed, policy=cfg.policy)
+    if max_abs_err(zip(got, want)):
+        raise AssertionError("kernel 2's measurement build != the library")
+    cyc = np.concatenate(spans)
+    med = np.median(cyc, axis=0)
+    whole = float(np.median(cyc.sum(axis=1)))
+    return dict(ctas=len(spans[0]), cta_cycles=whole,
+                **{f"{k}_cycles": float(m) for k, m in
+                   zip(("scan", "group", "rows"), med)},
+                **{f"{k}_share": float(m) / whole for k, m in
+                   zip(("scan", "group", "rows"), med)})
+
+
+def _build_check(rc):
+    from repro_torch.kernels import _build
+    _build.check(rc, "kway_probe (-DKWAY_PHASE_CLOCKS)")
+
+
+def say_split(card, split, design):
+    for name, pieces in split.items():
+        figs = ", ".join(f"{k} {v:.1f}" for k, v in pieces.items())
+        say(card, f"{name} host split ({design}; us per call, median of 7 x "
+                  f"200 calls of each piece alone): {figs}")
+
+
+def probe_at_scale(card, cfg, st, trace, dev, results):
+    """Kernels 1 and 2 on the full-size state at 1024 and MAX_BATCH queries
+    and at the most a call takes (MAX_QUERIES, the trace's keys repeated),
+    where kernel 2's CTAs each hold far more queries than shared memory
+    lists: device time by torch.profiler, and kernel 2's phases from its
+    measurement build; at MAX_QUERIES also equal to the plain versions."""
+    from repro_torch.core import hashing
+    from repro_torch.kernels import kway_probe as kp
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import replay as krp
+
+    route = dict(num_sets=cfg.num_sets, seed=cfg.seed, policy=cfg.policy)
+    lanes = (st.keys, st.fprint, st.meta_a, st.meta_b)
+    scale = {}
+    for b in (BATCH, krp.MAX_BATCH, kp.MAX_QUERIES):
+        q = hashing.key_tensor(np.resize(trace[PREFIX:], b), dev)
+        en = torch.ones(b, dtype=torch.bool, device=dev)
+        run1 = lambda: kp.kway_probe(*lanes, q, st.clock,  # noqa: E731
+                                     full_order=True, **route)
+        run2 = lambda: kp.kway_fused_probe(*lanes, q, st.clock,  # noqa: E731
+                                           en, **route)
+        reps = 3 if b == kp.MAX_QUERIES else 50
+        if b == kp.MAX_QUERIES:
+            e1 = max_abs_err(zip(run1(), kref.kway_probe_ref(
+                *lanes, q, st.clock, full_order=True, **route)))
+            e2 = max_abs_err(zip(run2(), kref.kway_fused_probe_ref(
+                *lanes, q, st.clock, en, **route)))
+            if e1 or e2:
+                raise AssertionError(f"kernels 1/2 at {b} queries: max abs "
+                                     f"err {e1} / {e2}")
+            torch.cuda.empty_cache()
+        ms1, ms2 = cuda_ms(run1, reps), cuda_ms(run2, reps)
+        d1 = profiled_device_ms(run1, reps, ("probe_kernel",))
+        d2 = profiled_device_ms(run2, reps, ("fused_kernel",))
+        ph = kernel2_phases(cfg, st, q, en, reps=min(reps, 20))
+        scale[b] = dict(k1_ms=ms1, k2_ms=ms2, k1_device_ms=d1,
+                        k2_device_ms=d2, k2_phases=ph)
+        checked = "; both == plain" if b == kp.MAX_QUERIES else ""
+        say(card, f"B={b}: kernel 1 (full order) {ms1:.4f} ms per wrapper "
+                  f"call (CUDA events), device {fmt_ms(d1)}; kernel 2 "
+                  f"{ms2:.4f} ms, device {fmt_ms(d2)} (torch.profiler)"
+                  f"{checked}; kernel 2's phases ({ph['ctas']} CTAs, median clock64 cycles of a "
+                  f"CTA, measurement build): scan {ph['scan_cycles']:.0f} "
+                  f"({ph['scan_share']:.1%}), group {ph['group_cycles']:.0f}"
+                  f" ({ph['group_share']:.1%}), rows {ph['rows_cycles']:.0f} "
+                  f"({ph['rows_share']:.1%}) of {ph['cta_cycles']:.0f}")
+        del q, en
+        torch.cuda.empty_cache()
+    for key, k in (("kway_probe", "k1"), ("kway_fused_probe", "k2")):
+        results[key]["scale_ms"] = {str(b): v[f"{k}_ms"]
+                                    for b, v in scale.items()}
+        results[key]["scale_device_ms"] = {str(b): v[f"{k}_device_ms"]
+                                           for b, v in scale.items()}
+    results["kway_fused_probe"]["scale_phases"] = {
+        str(b): v["k2_phases"] for b, v in scale.items()}
 
 
 def phase_replay_kernel(card, trace, ttl_trace, dev, results):
@@ -942,63 +1182,83 @@ def phase_timing(card, trace, dev, results):
     from repro_torch.core.kway import KWayConfig
     from repro_torch.core.policies import Policy
     from repro_torch.kernels import kway_probe as kp
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import replay as krp
 
     cfg = KWayConfig(num_sets=NUM_SETS, ways=WAYS, policy=Policy.LRU)
     st = fill_state(cfg, router.pad_chunks(trace[:PREFIX], BATCH), dev)
     q = hashing.key_tensor(trace[PREFIX:PREFIX + BATCH], dev)
-    qk, sets = kway.route(cfg, q)
-    sets = sets.to(torch.int32)
-    tg = st.clock + torch.arange(BATCH, dtype=torch.int32, device=dev)
-    tp = tg + BATCH
     en = torch.ones(BATCH, dtype=torch.bool, device=dev)
     lanes = (st.keys, st.fprint, st.meta_a, st.meta_b)
+    route = dict(num_sets=cfg.num_sets, seed=cfg.seed, policy=cfg.policy)
     row = WAYS * 4
-    rows = int(torch.unique(sets).numel())
+    rows = int(torch.unique(kway.route(cfg, q)[1]).numel())
 
     # kernel 1, full-order variant (the put probe of the two-phase path):
-    # reads lanes_read rows per distinct set + 12 B per query (set, key,
-    # time), writes 16 + 4*ways B (hit, way, victim way and key, order)
-    k1 = dict(policy=Policy.LRU, full_order=True)
-    b1 = rows * lanes_read(Policy.LRU) * row + BATCH * (12 + 16 + row)
-    ms = cuda_ms(lambda: kp.kway_probe(*lanes, sets, qk, tg, **k1), 200)
-    plain = cuda_ms(lambda: kref.kway_probe_ref(*lanes, sets, qk, tg, **k1),
+    # reads the raw keys (4 B a query), the clock and lanes_read rows per
+    # distinct set; writes the key, set, hit, way, victim way and key and
+    # the order, at the reference's widths (4 + 4 + 1 + 4 + 4 + 4 + 4*ways
+    # B a query; the wrapper's int64 sets and ways are the design's cost,
+    # not the bound's)
+    k1 = dict(route, full_order=True)
+    b1 = (rows * lanes_read(Policy.LRU) * row + 4
+          + BATCH * (4 + 4 + 4 + 1 + 4 + 4 + 4 + row))
+    run1 = lambda: kp.kway_probe(*lanes, q, st.clock, **k1)  # noqa: E731
+    ms = cuda_ms(run1, 200)
+    plain = cuda_ms(lambda: kref.kway_probe_ref(*lanes, q, st.clock, **k1),
                     50)
-    dev_ms = profiled_device_ms(
-        lambda: kp.kway_probe(*lanes, sets, qk, tg, **k1), 50,
-        ("probe_kernel",))
-    results["kway_probe"].update(ms=ms, plain_ms=plain, device_ms=dev_ms,
-                                 bound_ms=b1 / HBM_BYTES_PER_S * 1e3)
-    kh = dict(policy=Policy.LRU, need_victims=False)
-    ms_h = cuda_ms(lambda: kp.kway_probe(*lanes, sets, qk, tg, **kh), 200)
+    dev_ms = profiled_device_ms(run1, 50, ("probe_kernel",))
+    ops_ms = cuda_ms(lambda: ops.probe_orders(cfg, st, q), 200)
+    ops_host = host_us(lambda: ops.probe_orders(cfg, st, q))
+    bound = b1 / HBM_BYTES_PER_S * 1e3
+    results["kway_probe"].update(
+        ms=ms, plain_ms=plain, device_ms=dev_ms, bound_ms=bound,
+        bound_share=dev_ms and bound / dev_ms, ops_ms=ops_ms,
+        ops_host_us=ops_host)
+    kh = dict(route, need_victims=False)
+    ms_h = cuda_ms(lambda: kp.kway_probe(*lanes, q, st.clock, **kh), 200)
     say(card, f"kway_probe full_order B={BATCH}: {ms:.4f} ms per wrapper "
               f"call (CUDA events, back to back), kernel device time "
-              f"{fmt_ms(dev_ms)} (torch.profiler), bound "
-              f"{b1 / HBM_BYTES_PER_S * 1e3:.6f} ms ({b1} B), plain "
-              f"{plain:.4f} ms; hits-only variant {ms_h:.4f} ms per call; "
-              f"library_ms: none")
+              f"{fmt_ms(dev_ms)} (torch.profiler), bound {bound:.6f} ms "
+              f"({b1} B), bound share {fmt_share(dev_ms and bound / dev_ms)},"
+              f" plain {plain:.4f} ms; ops.probe_orders {ops_ms:.4f} ms per "
+              f"call (CUDA events), host {ops_host:.1f} us per call; "
+              f"hits-only variant {ms_h:.4f} ms per call; library_ms: none")
+    say_previous(card, "kway_probe")
 
-    # kernel 2 (its wrapper: meta_a copy + 2 launches); the function reads
-    # lanes_read rows per distinct set + 17 B per query (set, key, two
-    # times, enable flag) and writes 8 + 4*ways B (hit, way, order)
-    b2 = rows * lanes_read(Policy.LRU) * row + BATCH * (17 + 8 + row)
-    ms = cuda_ms(lambda: kp.kway_fused_probe(*lanes, sets, qk, tg, tp, en,
-                                             policy=Policy.LRU), 200)
-    plain = cuda_ms(lambda: kref.kway_fused_probe_ref(
-        *lanes, sets, qk, tg, tp, en, policy=Policy.LRU), 50)
-    dev_ms = profiled_device_ms(
-        lambda: kp.kway_fused_probe(*lanes, sets, qk, tg, tp, en,
-                                    policy=Policy.LRU), 50,
-        ("fused_hit_kernel", "fused_order_kernel"))
-    results["kway_fused_probe"].update(ms=ms, plain_ms=plain,
-                                       device_ms=dev_ms,
-                                       bound_ms=b2 / HBM_BYTES_PER_S * 1e3)
+    # kernel 2: reads the raw keys and enable flags (5 B a query), the clock
+    # and lanes_read rows per distinct set; writes the key, set, hit, way
+    # and the order at the reference's widths (4 + 4 + 1 + 4 + 4*ways B a
+    # query)
+    b2 = (rows * lanes_read(Policy.LRU) * row + 4
+          + BATCH * (5 + 4 + 4 + 1 + 4 + row))
+    run2 = lambda: kp.kway_fused_probe(*lanes, q, st.clock, en,  # noqa: E731
+                                       **route)
+    ms = cuda_ms(run2, 200)
+    plain = cuda_ms(lambda: kref.kway_fused_probe_ref(*lanes, q, st.clock,
+                                                      en, **route), 50)
+    dev_ms = profiled_device_ms(run2, 50, ("fused_kernel",))
+    ops_ms = cuda_ms(lambda: ops.fused_probe(cfg, st, q, en), 200)
+    ops_host = host_us(lambda: ops.fused_probe(cfg, st, q, en))
+    bound = b2 / HBM_BYTES_PER_S * 1e3
+    results["kway_fused_probe"].update(
+        ms=ms, plain_ms=plain, device_ms=dev_ms, bound_ms=bound,
+        bound_share=dev_ms and bound / dev_ms, ops_ms=ops_ms,
+        ops_host_us=ops_host)
     say(card, f"kway_fused_probe B={BATCH}: {ms:.4f} ms per wrapper call "
-              f"(CUDA events), device time of its 2 kernels "
-              f"{fmt_ms(dev_ms)} (torch.profiler), bound "
-              f"{b2 / HBM_BYTES_PER_S * 1e3:.6f} ms ({b2} B), plain "
-              f"{plain:.4f} ms; library_ms: none")
+              f"(CUDA events), device time {fmt_ms(dev_ms)} (torch.profiler,"
+              f" one kernel), bound {bound:.6f} ms ({b2} B), bound share "
+              f"{fmt_share(dev_ms and bound / dev_ms)}, plain {plain:.4f} "
+              f"ms; ops.fused_probe {ops_ms:.4f} ms per call (CUDA events), "
+              f"host {ops_host:.1f} us per call; library_ms: none")
+    say_previous(card, "kway_fused_probe")
+    split = probe_split(cfg, st, q, en)
+    say_split(card, split, "one launch per ops call")
+    for name, key in (("probe_orders", "kway_probe"),
+                      ("fused_probe", "kway_fused_probe")):
+        results[key]["split_us"] = split[name]
+    probe_at_scale(card, cfg, st, trace, dev, results)
 
     # kernel 3: the whole trace; reads the trace (4 B key + 1 B flag per
     # request) and, of each row the trace touches, the lanes its policy
@@ -1731,10 +1991,12 @@ def main() -> int:
             "library_ms": r.get("library_ms"),
             **{k: v for k, v in r.items()
                if k in ("requests", "tol", "host_ms", "bound_share", "split",
-                        "form", "blocks", "requests_per_s", "bucket_share")
+                        "form", "blocks", "requests_per_s", "bucket_share",
+                        "split_us", "scale_ms", "scale_device_ms",
+                        "scale_phases")
                or k.startswith(("full_", "serve_", "gqa_", "max_abs_err_",
                                 "layer0_", "global_", "bucket_", "skew_",
-                                "narrow_"))}})
+                                "narrow_", "ops_"))}})
     print("kernels " + ", ".join(
         f"{k['name']}: launches={k['launches']} exact={k['exact']} "
         f"ms={k['ms']:.4f}" for k in kernels) + f" [{card}]")

@@ -21,10 +21,14 @@ Counterpart of ``repro/core/backend.py`` with the port's own registry:
 ``device=None`` means the card ("cuda"); without one, ``make_backend``
 raises unless the caller passes ``device="cpu"``.  Keys are uint32 (numpy
 arrays or tensors); evicted and victim keys come back as int32 bit
-patterns.  The reference's VMEM budgets (``resident_fits``, ``hier_fits``
-and the ``l1_demotion`` fallback) have no counterpart: both tiers live in
-device memory, so ``cuda`` replay always runs kernel 3, or kernel 4 for a
-hierarchy.
+patterns.  The reference's VMEM budgets have the port's own rules on
+size: ``cuda`` replay runs kernel 3 where ``kernels.replay.resident_fits``
+holds (at most ``MAX_BATCH`` lanes a chunk, its form's scratch within the
+card's shared memory per block) and otherwise records a ``smem_budget``
+event and runs the chunked path, as the reference falls back on
+``vmem_budget``.  A hierarchy always runs kernel 4: both tiers live in
+device memory, so the reference's ``hier_fits`` / ``l1_demotion`` have no
+counterpart.
 """
 from __future__ import annotations
 
@@ -311,8 +315,11 @@ class CudaBackend(CacheBackend):
     def replay(self, state, chunks, enabled, tinylfu=None, sketch=None,
                hierarchy=None, ttls=None):
         """Kernel 4 for a hierarchy, else kernel 3 (with TinyLFU's branch
-        when ``tinylfu``), one launch for the whole trace."""
+        when ``tinylfu``), one launch for the whole trace; where kernel 3
+        does not take the shape (``resident_fits``), one ``smem_budget``
+        event and the chunked path."""
         from repro_torch.kernels import ops
+        from repro_torch.kernels import replay as krp
         _check_replay(tinylfu, ttls)
         if hierarchy is not None and hierarchy.enabled:
             if tinylfu is not None:
@@ -321,6 +328,23 @@ class CudaBackend(CacheBackend):
                                          ttl=ttls is not None)
             return ops.replay_hierarchical(self.cfg, hierarchy, hst, chunks,
                                            enabled, ttls=ttls)
+        batch = chunks.shape[1]
+        if not krp.resident_fits(self.cfg, batch, tinylfu is not None,
+                                 self.device):
+            from repro_torch.robust import events
+            need = krp.resident_smem_bytes(self.cfg, batch,
+                                           tinylfu is not None)
+            events.record(
+                component="cuda.replay", reason="smem_budget",
+                fallback_from="cuda-resident", fallback_to="cuda-scan",
+                detail=(f"kernel 3 needs {need} B of shared memory per "
+                        f"block (opt-in {krp._smem_optin(self.device)}) "
+                        f"and takes at most {krp.MAX_BATCH} lanes a chunk "
+                        f"(num_sets={self.cfg.num_sets}, ways="
+                        f"{self.cfg.ways}, batch={batch}); falling back "
+                        f"to the chunked path"))
+            return self.replay_scan(state, chunks, enabled, tinylfu=tinylfu,
+                                    sketch=sketch, ttls=ttls)
         return ops.replay_resident(self.cfg, state, chunks, enabled,
                                    ttls=ttls, tinylfu=tinylfu, sketch=sketch)
 

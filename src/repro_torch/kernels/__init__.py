@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port (sm_90a) and their plain versions.
 
     kway_probe — kernels 1 and 2: batched set probe + victim order, and the
-                 fused probe of ``access`` (csrc/kway_probe.cu)
+                 fused probe of ``access``, one launch each with the
+                 route inside (csrc/kway_probe.cu)
     replay     — kernel 3: a whole chunked trace in one launch, flat, TTL
                  or TinyLFU (csrc/replay.cu); kernel 4: the same through
                  the L1-over-L2 hierarchy (csrc/replay_hier.cu)

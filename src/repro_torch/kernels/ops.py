@@ -1,71 +1,57 @@
 """Public wrappers around the port's kernels.
 
-Counterpart of ``repro/kernels/ops.py``: sanitize and route the keys in
-torch, shape the kernel inputs, and call the kernel wrappers, which run the
-kernel for CUDA tensors and the plain version for CPU tensors.  Ways are
-not padded to 128 lanes: that was the TPU's register width.
+Counterpart of ``repro/kernels/ops.py``: shape the kernel inputs and call
+the kernel wrappers, which run the kernel for CUDA tensors and the plain
+version for CPU tensors.  The probes (kernels 1 and 2) route the keys
+themselves, so their ops are one wrapper call each.  Ways are not padded to
+128 lanes: that was the TPU's register width.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import hashing, kway
+from repro_torch.core import hashing
 from repro_torch.core.kway import KWayConfig, KWayState
 from repro_torch.kernels import kway_probe as _kp
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import replay as _rp
 
 
-def _probe_impl(cfg: KWayConfig, state: KWayState, qkeys, full_order: bool,
-                need_victims: bool):
-    qkeys, sets = kway.route(cfg, qkeys)
-    times = state.clock + torch.arange(qkeys.shape[0], dtype=torch.int32,
-                                       device=state.device)
-    outs = _kp.kway_probe(
-        state.keys, state.fprint, state.meta_a, state.meta_b,
-        sets.to(torch.int32), qkeys, times, policy=cfg.policy,
-        full_order=full_order, need_victims=need_victims)
-    return qkeys, sets, outs
+def _probe(cfg: KWayConfig, state: KWayState, qkeys, **kw):
+    return _kp.kway_probe(state.keys, state.fprint, state.meta_a,
+                          state.meta_b, qkeys, state.clock,
+                          num_sets=cfg.num_sets, seed=cfg.seed,
+                          policy=cfg.policy, **kw)
 
 
 def probe(cfg: KWayConfig, state: KWayState, qkeys):
-    """-> (qkeys_sanitized, sets, hit bool[B], way, victim_way, victim_key)."""
-    qkeys, sets, (hit, way, vway, vkey) = _probe_impl(
-        cfg, state, qkeys, full_order=False, need_victims=True)
-    return qkeys, sets, hit.to(torch.bool), way.long(), vway.long(), vkey
+    """Probe int32 key lanes -> (qkeys_sanitized, sets, hit bool[B], way,
+    victim_way, victim_key)."""
+    return _probe(cfg, state, qkeys)
 
 
 def probe_hits(cfg: KWayConfig, state: KWayState, qkeys):
     """Read-path probe, no victim scoring -> (qkeys, sets, hit, way)."""
-    qkeys, sets, (hit, way) = _probe_impl(
-        cfg, state, qkeys, full_order=False, need_victims=False)
-    return qkeys, sets, hit.to(torch.bool), way.long()
+    return _probe(cfg, state, qkeys, need_victims=False)
 
 
 def probe_orders(cfg: KWayConfig, state: KWayState, qkeys):
     """Probe + full victim order (what ``kway.apply_put`` consumes) ->
     (qkeys, sets, hit, way, order [B, ways])."""
-    qkeys, sets, (hit, way, _, _, order) = _probe_impl(
-        cfg, state, qkeys, full_order=True, need_victims=True)
-    return qkeys, sets, hit.to(torch.bool), way.long(), order
+    qk, sets, hit, way, _, _, order = _probe(cfg, state, qkeys,
+                                             full_order=True)
+    return qk, sets, hit, way, order
 
 
 def fused_probe(cfg: KWayConfig, state: KWayState, qkeys, enabled=None):
     """Fused probe for ``access`` -> (qkeys, sets, hit bool[B] raw, way,
     order [B, ways]) with the order scored on the hit-updated metadata at
-    the put-phase times: what ``kway.apply_access`` consumes."""
-    qkeys, sets = kway.route(cfg, qkeys)
-    b = qkeys.shape[0]
-    times_get = state.clock + torch.arange(b, dtype=torch.int32,
-                                           device=state.device)
-    times_put = times_get + b
-    en = (torch.ones(b, dtype=torch.bool, device=state.device)
-          if enabled is None else enabled.to(state.device, torch.bool))
-    hit, way, order = _kp.kway_fused_probe(
-        state.keys, state.fprint, state.meta_a, state.meta_b,
-        sets.to(torch.int32), qkeys, times_get, times_put, en,
-        policy=cfg.policy)
-    return qkeys, sets, hit.to(torch.bool), way.long(), order
+    the put-phase times: what ``kway.apply_access`` consumes.  ``enabled``
+    is a bool [B] tensor on the state's device, or None."""
+    return _kp.kway_fused_probe(state.keys, state.fprint, state.meta_a,
+                                state.meta_b, qkeys, state.clock, enabled,
+                                num_sets=cfg.num_sets, seed=cfg.seed,
+                                policy=cfg.policy)
 
 
 def replay_resident(cfg: KWayConfig, state: KWayState, chunks, enabled,

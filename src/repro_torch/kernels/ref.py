@@ -2,7 +2,9 @@
 
 Counterpart of ``repro/kernels/ref.py``: each function computes exactly
 what its CUDA kernel computes (``kernels/csrc/kway_probe.cu``,
-``kernels/csrc/paged_attention.cu``), with plain tensor ops.  The CPU
+``kernels/csrc/paged_attention.cu``), with plain tensor ops.  The probes
+take the raw key lanes and route them themselves (sanitize, set index,
+times), as their kernels do.  The CPU
 tests use them, the kernel wrappers run them for CPU tensors, and
 ``chip_smoke.py`` holds the kernels to them on the card.
 
@@ -21,10 +23,21 @@ from repro_torch.core.policies import Policy, victim_scores
 _I32_LOW = -(2**31 - 1)
 
 
+def route(qkeys, clock, num_sets: int, seed: int):
+    """What kernels 1 and 2 compute before probing: the sanitized keys
+    (int32), their sets (int64) and the get-phase times ``clock + i``
+    (int32, wrapping)."""
+    qk = hashing.sanitize_keys(qkeys)
+    sets = hashing.set_index(qk, num_sets, seed)
+    times = clock + torch.arange(qk.shape[0], dtype=torch.int32,
+                                 device=qk.device)
+    return qk, sets, times
+
+
 def _row_probe(keys, fprint, sets, qkeys):
     """Fingerprint pre-filter + full-key confirm on each query's set row.
-    -> (row_keys [B, k], occupied [B, k], hit [B], way [B]: first match or
-    0)."""
+    -> (row_keys [B, k], occupied [B, k], hit [B], way [B] int64: first
+    match or 0)."""
     row_keys = keys[sets]
     occupied = row_keys != EMPTY
     eq = ((fprint[sets] == hashing.fingerprint(qkeys)[:, None])
@@ -43,40 +56,44 @@ def _order(policy, row_keys, occupied, row_a, row_b, now):
     return torch.argsort(sc, dim=-1, stable=True)
 
 
-def kway_probe_ref(keys, fprint, meta_a, meta_b, sets, qkeys, times, *,
-                   policy, full_order=False, need_victims=True):
-    """Plain version of ``kway_probe.kway_probe``.
+def kway_probe_ref(keys, fprint, meta_a, meta_b, qkeys, clock, *,
+                   num_sets, seed, policy, full_order=False,
+                   need_victims=True):
+    """Plain version of ``kway_probe.kway_probe``: route the raw int32 key
+    lanes ``qkeys`` [B] (``route``), probe, and score at ``clock + i``.
 
-    -> (hit, way) int32 [B] when ``need_victims`` is False; else also the
-    victim way and key (int32 [B]) scored at ``times``, and with
-    ``full_order`` the whole victim order int32 [B, ways].
+    -> (qk int32, sets int64, hit bool, way int64) [B] when
+    ``need_victims`` is False; else also the victim way (int64) and key
+    (int32) [B], and with ``full_order`` the whole worst-victim-first order
+    int32 [B, ways].
     """
-    sets = sets.to(torch.int64)
-    row_keys, occupied, hit, way = _row_probe(keys, fprint, sets, qkeys)
-    out = (hit.to(torch.int32), way.to(torch.int32))
+    qk, sets, times = route(qkeys, clock, num_sets, seed)
+    row_keys, occupied, hit, way = _row_probe(keys, fprint, sets, qk)
+    out = (qk, sets, hit, way)
     if not need_victims:
         return out
     order = _order(policy, row_keys, occupied, meta_a[sets], meta_b[sets],
                    times)
     vway = order[:, :1]
-    out = out + (vway[:, 0].to(torch.int32),
-                 torch.gather(row_keys, 1, vway)[:, 0])
+    out = out + (vway[:, 0], torch.gather(row_keys, 1, vway)[:, 0])
     if full_order:
         out = out + (order.to(torch.int32),)
     return out
 
 
-def kway_fused_probe_ref(keys, fprint, meta_a, meta_b, sets, qkeys,
-                         times_get, times_put, en, *, policy):
-    """Plain version of ``kway_probe.kway_fused_probe`` -> (hit int32 [B]
-    raw, unmasked by ``en``; way int32 [B]; order int32 [B, ways]) with the
-    order scored on ``meta_a`` after the live hits' ``on_hit`` at
-    ``times_put``.  Batched, the sequential hit transitions are a
-    scatter-add (LFU/HYPERBOLIC) or scatter-max (LRU: batch times
-    increase)."""
-    sets = sets.to(torch.int64)
-    row_keys, occupied, hit, way = _row_probe(keys, fprint, sets, qkeys)
-    do = hit & (en != 0)
+def kway_fused_probe_ref(keys, fprint, meta_a, meta_b, qkeys, clock, en, *,
+                         num_sets, seed, policy):
+    """Plain version of ``kway_probe.kway_fused_probe``: route the raw
+    int32 key lanes ``qkeys`` [B], probe at ``clock + i`` and score the
+    order on ``meta_a`` after the live hits' ``on_hit`` (``en`` bool [B],
+    None: every lane) at ``clock + B + i``.  -> (qk int32, sets int64, hit
+    bool [B] raw, unmasked by ``en``; way int64 [B]; order int32 [B,
+    ways]).  Batched, the sequential hit transitions are a scatter-add
+    (LFU/HYPERBOLIC) or scatter-max (LRU: batch times increase)."""
+    qk, sets, times_get = route(qkeys, clock, num_sets, seed)
+    times_put = times_get + qk.shape[0]
+    row_keys, occupied, hit, way = _row_probe(keys, fprint, sets, qk)
+    do = hit if en is None else hit & en
     flat = sets * keys.shape[1] + way
     ma1 = meta_a
     if policy == Policy.LRU:
@@ -88,7 +105,7 @@ def kway_fused_probe_ref(keys, fprint, meta_a, meta_b, sets, qkeys,
         ma1.view(-1).index_put_((flat,), do.to(torch.int32), accumulate=True)
     order = _order(policy, row_keys, occupied, ma1[sets], meta_b[sets],
                    times_put)
-    return hit.to(torch.int32), way.to(torch.int32), order.to(torch.int32)
+    return qk, sets, hit, way, order.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

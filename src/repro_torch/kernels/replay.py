@@ -50,6 +50,8 @@ MAX_BATCH = 16384
 #: bucketing counts owners in 32 KiB of shared memory).
 OWNER_SHIFT_MIN = 4
 MAX_OWNERS = 2**13
+#: Warps per block of kernel 3's owners form (``kOwnerWarps``).
+OWNER_WARPS = 4
 #: Lanes per segment of kernel 3's bucketing (at least; at most
 #: MAX_SEGMENTS segments, so its (segment, owner) counts stay <= 32 MiB).
 BUCKET_SEGMENT = 4096
@@ -128,9 +130,21 @@ def hier_smem_bytes(cfg: kway.KWayConfig, hier, expiry: bool) -> tuple:
 
 
 @functools.cache
-def _smem_optin(device: torch.device) -> int:
+def _smem_optin(device: torch.device) -> int | None:
+    """``device``'s opt-in shared memory per block in bytes; None off the
+    card, where the wrappers run the plain versions, which use none."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
     return torch.cuda.get_device_properties(
         device).shared_memory_per_block_optin
+
+
+def _smem_fits(need: int, device) -> bool:
+    """Whether ``need`` bytes of shared memory per block fit ``device``
+    (always off the card)."""
+    optin = _smem_optin(torch.device(device))
+    return optin is None or need <= optin
 
 
 def hier_l1_form(cfg: kway.KWayConfig, hier, expiry: bool, device) -> str:
@@ -138,8 +152,7 @@ def hier_l1_form(cfg: kway.KWayConfig, hier, expiry: bool, device) -> str:
     shared memory per block, else ``"global"`` (a rule on size: both forms
     compute the same)."""
     ring, l1 = hier_smem_bytes(cfg, hier, expiry)
-    fits = ring + l1 <= _smem_optin(torch.device(device))
-    return "shared" if fits else "global"
+    return "shared" if _smem_fits(ring + l1, device) else "global"
 
 
 def _ptr(t):
@@ -155,6 +168,41 @@ def owner_shift(num_sets: int) -> int:
 
 def num_owners(num_sets: int) -> int:
     return max(1, num_sets >> owner_shift(num_sets))
+
+
+def resident_smem_bytes(cfg: kway.KWayConfig, batch: int,
+                        tinylfu: bool) -> int:
+    """Shared memory per block that kernel 3's form for chunks of ``batch``
+    lanes needs at its smallest (``csrc/replay.cu`` ``launch_owners``,
+    ``launch_grid``, ``launch_block``): the owners form, ``OWNER_WARPS``
+    warps' scratch; the grid form, one warp's (it halves its warps per
+    block down to one to fit); the block form, 14 B a lane."""
+    form = replay_form(batch, tinylfu)
+    if form == "block":
+        return 14 * batch
+    # a warp's scratch (``scratch_ints``): a count per set of its owner,
+    # 3 ints per listed inserting lane, with TinyLFU a bit per lane
+    ints = (1 << owner_shift(cfg.num_sets)) + 3 * insert_cap(cfg, batch)
+    if form == "grid":
+        return 4 * (ints + -(-batch // 32))
+    return OWNER_WARPS * 4 * ints
+
+
+def resident_fits(cfg: kway.KWayConfig, batch: int, tinylfu: bool,
+                  device) -> bool:
+    """Whether kernel 3 takes chunks of ``batch`` lanes of ``cfg`` on
+    ``device`` (a rule on size, the same as the C entry's checks): at most
+    ``MAX_BATCH`` lanes, and on the card its form's shared memory within
+    the opt-in per block.  ``CudaBackend.replay`` runs the chunked path
+    where it does not."""
+    return (batch <= MAX_BATCH
+            and _smem_fits(resident_smem_bytes(cfg, batch, tinylfu), device))
+
+
+def insert_cap(cfg: kway.KWayConfig, batch: int) -> int:
+    """Inserting lanes a group of kernel 3 can list: at most ``ways`` per
+    set of its owner."""
+    return min(batch, cfg.ways << owner_shift(cfg.num_sets))
 
 
 def replay_form(batch: int, tinylfu: bool) -> str:
@@ -358,8 +406,7 @@ def replay_resident(cfg: kway.KWayConfig, state: kway.KWayState, qkeys,
                                     tinylfu.sample)
 
     shift = owner_shift(cfg.num_sets)
-    # inserting lanes a group can list: at most `ways` per set of its owner
-    cap = min(batch, cfg.ways << shift)
+    cap = insert_cap(cfg, batch)
     rc = _lib().replay_launch(
         _ptr(lanes["keys"]), _ptr(lanes["fprint"]), _ptr(lanes["vals"]),
         _ptr(lanes["meta_a"]), _ptr(lanes["meta_b"]), _ptr(exp), _ptr(clock),

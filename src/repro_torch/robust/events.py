@@ -28,7 +28,9 @@ class DegradationEvent:
     reason: str             # "vmem_budget" | "kernel_failure" |
     #                         "validator_alarm" | "sync_timeout" |
     #                         "l1_demotion" (hierarchical L1 exceeds the
-    #                         VMEM budget; L1L2 falls to the jnp twin) | ...
+    #                         VMEM budget; L1L2 falls to the jnp twin) |
+    #                         "smem_budget" (kernel 3 does not take the
+    #                         shape; cuda replay runs the chunked path) | ...
     fallback_from: str = ""  # rung/path abandoned ("" for non-ladder events)
     fallback_to: str = ""    # rung/path taken instead
     detail: str = ""

@@ -50,17 +50,34 @@ def _warm_state(cfg, dev, n=3000, seed=5):
     return state
 
 
-def _queries(cfg, state, b, seed):
+#: widths of the probe kernels' tests: each lane-group width (1-32 lanes),
+#: one past it, and 2 and 4 ways a lane
+PROBE_WAYS = [1, 4, 8, 16, 17, 32, 33, 64, 128]
+
+
+def _probe_batches(cfg, state, seed):
+    """Raw key batches for kernels 1 and 2 (int32 tensors on the state's
+    device): B 1, 257 and 16384 with duplicates, resident keys and EMPTY
+    (0xFFFFFFFF, folded by the route), and 1000 keys of one set (more than
+    a CTA of kernel 2 groups in shared memory)."""
     rng = np.random.default_rng(seed)
-    keys = rng.integers(0, cfg.capacity * 4, b).astype(np.uint32)
-    keys[: b // 4] = keys[0]                          # duplicates
-    resident = state.keys.flatten()[: b // 4].cpu().numpy().view(np.uint32)
-    keys[b // 4: b // 4 + len(resident)] = resident
-    qk, sets = kway.route(cfg, torch.from_numpy(keys.view(np.int32))
-                          .to(state.device))
-    times = state.clock + torch.arange(b, dtype=torch.int32,
-                                       device=state.device)
-    return qk, sets.to(torch.int32), times
+    resident = state.keys.flatten().cpu().numpy().view(np.uint32)
+    resident = resident[resident != 0xFFFFFFFF]
+    out = []
+    for b in (1, 257, 16384):
+        keys = rng.integers(0, cfg.capacity * 4, b).astype(np.uint32)
+        keys[: b // 4] = keys[0]
+        m = min(b // 4, len(resident))
+        keys[b // 4: b // 4 + m] = rng.choice(resident, m)
+        keys[rng.random(b) < 0.05] = 0xFFFFFFFF
+        out.append(keys)
+    cand = np.arange(1, 16 * cfg.ways * cfg.num_sets, dtype=np.uint32)
+    sets = kway.route(cfg, torch.from_numpy(cand.view(np.int32)))[1].numpy()
+    pool = np.concatenate([cand[sets == 0],
+                           state.keys[0].cpu().numpy().view(np.uint32)])
+    pool = pool[pool != 0xFFFFFFFF]
+    out.append(pool[rng.integers(0, len(pool), 1000)])
+    return [hashing.key_tensor(k, state.device) for k in out]
 
 
 def _eq(a, b, what):
@@ -68,38 +85,80 @@ def _eq(a, b, what):
 
 
 @pytest.mark.parametrize("policy", ALL_POLICIES)
-@pytest.mark.parametrize("ways", [4, 8, 32])
+@pytest.mark.parametrize("ways", PROBE_WAYS)
 @pytest.mark.parametrize("variant", ["hits", "victim", "order"])
 def test_kway_probe_kernel_matches_plain(cuda, policy, ways, variant):
+    """Kernel 1 (one launch, the route inside) == its plain version, every
+    output, at B 1, 257, 16384 and on a batch of one set."""
     cfg = KWayConfig(num_sets=64, ways=ways, policy=policy)
     st = _warm_state(cfg, cuda)
-    qk, sets, times = _queries(cfg, st, 257, seed=ways)
     kw = dict(policy=policy, full_order=variant == "order",
-              need_victims=variant != "hits")
-    args = (st.keys, st.fprint, st.meta_a, st.meta_b, sets, qk, times)
-    before = kp.LAUNCHES["kway_probe"]
-    got = kp.kway_probe(*args, **kw)
-    torch.cuda.synchronize()
-    assert kp.LAUNCHES["kway_probe"] == before + 1
-    want = kref.kway_probe_ref(*args, **kw)
-    assert len(got) == len(want)
-    for i, (g, w) in enumerate(zip(got, want)):
-        _eq(g, w, f"{policy.name}/{variant}: output {i}")
+              need_victims=variant != "hits", num_sets=cfg.num_sets,
+              seed=cfg.seed)
+    for qk in _probe_batches(cfg, st, seed=ways):
+        args = (st.keys, st.fprint, st.meta_a, st.meta_b, qk, st.clock)
+        before = kp.LAUNCHES["kway_probe"]
+        got = kp.kway_probe(*args, **kw)
+        torch.cuda.synchronize()
+        assert kp.LAUNCHES["kway_probe"] == before + 1
+        want = kref.kway_probe_ref(*args, **kw)
+        assert len(got) == len(want)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == w.dtype, f"output {i}"
+            _eq(g, w, f"{policy.name}/{variant} B={len(qk)}: output {i}")
 
 
 @pytest.mark.parametrize("policy", ALL_POLICIES)
-@pytest.mark.parametrize("ways", [1, 8, 32])
+@pytest.mark.parametrize("ways", PROBE_WAYS)
 def test_kway_fused_probe_kernel_matches_plain(cuda, policy, ways):
+    """Kernel 2 (one launch, the route inside, no copy of meta_a) == its
+    plain version, every output, at B 1, 257, 16384 and on a batch of one
+    set, with an enable mask and with none; the state is left as it was."""
     cfg = KWayConfig(num_sets=32, ways=ways, policy=policy)
     st = _warm_state(cfg, cuda)
-    qk, sets, tg = _queries(cfg, st, 300, seed=ways + 7)
-    tp = tg + 300
-    en = torch.from_numpy(np.random.default_rng(1).random(300) < 0.8).to(cuda)
-    args = (st.keys, st.fprint, st.meta_a, st.meta_b, sets, qk, tg, tp, en)
-    got = kp.kway_fused_probe(*args, policy=policy)
-    want = kref.kway_fused_probe_ref(*args, policy=policy)
-    for i, (g, w) in enumerate(zip(got, want)):
-        _eq(g, w, f"{policy.name}: output {i}")
+    lanes = (st.keys, st.fprint, st.meta_a, st.meta_b)
+    saved = [t.clone() for t in lanes]
+    rng = np.random.default_rng(1)
+    for qk in _probe_batches(cfg, st, seed=ways + 7):
+        b = qk.shape[0]
+        for en in (torch.from_numpy(rng.random(b) < 0.8).to(cuda), None):
+            args = (*lanes, qk, st.clock, en)
+            kw = dict(policy=policy, num_sets=cfg.num_sets, seed=cfg.seed)
+            before = kp.LAUNCHES["kway_fused_probe"]
+            got = kp.kway_fused_probe(*args, **kw)
+            torch.cuda.synchronize()
+            assert kp.LAUNCHES["kway_fused_probe"] == before + 1
+            want = kref.kway_fused_probe_ref(*args, **kw)
+            for i, (g, w) in enumerate(zip(got, want)):
+                assert g.dtype == w.dtype, f"output {i}"
+                _eq(g, w, f"{policy.name} B={b} en={en is not None}: "
+                          f"output {i}")
+    for t, s in zip(lanes, saved):
+        _eq(t, s, "state lanes written")
+
+
+def test_kway_fused_probe_kernel_copies_no_state(cuda):
+    """At 2^20 sets, kernel 2 leaves meta_a as it was and allocates its one
+    output buffer (about 60 KiB at 1024 queries), far under the
+    S x ways x 4 = 32 MiB that a copy of meta_a would take."""
+    cfg = KWayConfig(num_sets=2**20, ways=8, policy=Policy.LRU)
+    be = make_backend("cuda", cfg, cuda)
+    tr = traces.generate("zipf", 2**16, seed=3, catalog=2**18)
+    chunks, en = router.pad_chunks(tr, 1024)
+    _, _, st, _ = be.replay(be.init(), chunks, en)
+    qk = hashing.key_tensor(tr[-1024:], cuda)
+    ma = st.meta_a.clone()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hit = kp.kway_fused_probe(st.keys, st.fprint, st.meta_a, st.meta_b, qk,
+                              st.clock, None, num_sets=cfg.num_sets,
+                              seed=cfg.seed, policy=cfg.policy)[2]
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - base
+    assert int(hit.sum()) > 0
+    assert grew < cfg.num_sets * cfg.ways * 4 // 64, grew
+    _eq(st.meta_a, ma, "meta_a written")
 
 
 def _assert_states_equal(a, b, what):
@@ -184,6 +243,54 @@ def test_replay_kernel_skew_and_edges(cuda, policy, case):
     en[-1, -3:] = False
     h, e, _, _ = _kernel3_equal(cfg, cuda, chunks, en)
     assert int(h.sum()) > 0 and int(e.sum()) > 0
+
+
+@pytest.mark.parametrize("num_sets", [2**18, 2**20])
+@pytest.mark.parametrize("tinylfu", [False, True])
+def test_replay_kernel_wide_owners(cuda, num_sets, tinylfu):
+    """Owners of 32 and 128 sets (``owner_shift`` 5 and 7) and their wider
+    shared-memory scratch, at B = 1024, flat LRU and TinyLFU: == the torch
+    twin and the cuda chunked path."""
+    assert krp.owner_shift(num_sets) == {2**18: 5, 2**20: 7}[num_sets]
+    cfg = KWayConfig(num_sets=num_sets, ways=2, policy=Policy.LRU)
+    tr = traces.generate("zipf", num_sets, seed=num_sets % 97,
+                         catalog=cfg.capacity * 3)
+    chunks, en = router.pad_chunks(tr, 1024)
+    kw = {}
+    form = "owners"
+    if tinylfu:
+        kw = dict(tinylfu=admission.TinyLFUConfig(
+            width=2**16, door_bits=2**17, sample=num_sets))
+        form = "grid"
+    h, e, _, _ = _kernel3_equal(cfg, cuda, chunks, en, form=form, **kw)
+    assert int(h.sum()) > 0 and int(e.sum()) > 0
+
+
+def test_cuda_replay_runs_the_chunked_path_beyond_kernel3(cuda):
+    """2^23 sets x 8 ways at B = 8192: kernel 3's owners form would need
+    409,600 B of shared memory per block, so ``CudaBackend.replay`` records
+    one ``smem_budget`` event and runs the chunked path, launching no
+    kernel 3; per-chunk hits and evictions and the final state equal the
+    torch twin's."""
+    from repro_torch.robust import events
+    cfg = KWayConfig(num_sets=2**23, ways=8, policy=Policy.LRU)
+    assert not krp.resident_fits(cfg, 8192, False, cuda)
+    tr = traces.generate("zipf", 4 * 8192, seed=3, catalog=2**15)
+    chunks, en = router.pad_chunks(tr, 8192)
+    cb = make_backend("cuda", cfg, cuda)
+    tb = make_backend("torch", cfg, cuda)
+    krp.reset_trace_counts()
+    cur = events.cursor()
+    got = cb.replay(cb.init(), chunks, en)
+    torch.cuda.synchronize()
+    assert krp.trace_counts() == {}
+    assert events.count(component="cuda.replay", reason="smem_budget",
+                        start=cur) == 1
+    want = tb.replay(tb.init(), chunks, en)
+    _eq(got[0], want[0], "per-chunk hits")
+    _eq(got[1], want[1], "per-chunk evictions")
+    _assert_states_equal(got[2], want[2], "torch twin")
+    assert int(got[0].sum()) > 0
 
 
 @pytest.mark.parametrize("num_sets", [1, 32, 2**17])

@@ -32,10 +32,12 @@ ALL_POLICIES = list(Policy)
 
 
 def _state(s, ways, seed, catalog=64):
-    """Random numpy state leaves: about a fifth of the ways empty,
-    consistent fingerprints, metadata below the clock."""
+    """Random numpy state leaves: about a fifth of the ways empty, some
+    holding 0xFFFFFFFE (the sanitized EMPTY key), consistent fingerprints,
+    metadata below the clock."""
     rng = np.random.default_rng(seed)
     keys = rng.integers(0, catalog, (s, ways)).astype(np.uint32)
+    keys[rng.random((s, ways)) < 0.05] = 0xFFFFFFFE
     keys[rng.random((s, ways)) < 0.2] = 0xFFFFFFFF
     fpr = np.asarray(jh.fingerprint(jnp.asarray(keys)))
     fpr = np.where(keys == 0xFFFFFFFF, 0, fpr).astype(np.uint32)
@@ -46,15 +48,24 @@ def _state(s, ways, seed, catalog=64):
             "meta_a": ma, "meta_b": mb, "clock": np.int32(clock)}
 
 
-def _queries(s, b, seed, catalog=64):
-    """Keys (with duplicates) plus their sets, times and an enable mask."""
+def _raw_queries(b, seed, catalog=64):
+    """Raw keys with duplicates and EMPTY (0xFFFFFFFF, which the route
+    folds onto 0xFFFFFFFE), and an enable mask."""
     rng = np.random.default_rng(seed + 1)
     qk = rng.integers(0, catalog, b).astype(np.uint32)
     qk[: b // 4] = qk[0]
-    sets = np.asarray(jh.set_index(jnp.asarray(qk), s)).astype(np.int32)
-    times = (5000 + np.arange(b)).astype(np.int32)
+    qk[rng.random(b) < 0.1] = 0xFFFFFFFF
     en = rng.random(b) < 0.75
-    return qk, sets, times, en
+    return qk, en
+
+
+def _j_route(s, qk, clock):
+    """The reference's route (``repro.kernels.ops._probe_impl``): sanitized
+    keys, sets and the get-phase times."""
+    jq = jh.sanitize_keys(jnp.asarray(qk))
+    sets = jh.set_index(jq, s, 0x51CA)
+    times = clock + jnp.arange(len(qk), dtype=jnp.int32)
+    return jq, sets, times
 
 
 def _j_lanes(st):
@@ -67,66 +78,91 @@ def _t_lanes(st):
     return [t.keys, t.fprint, t.meta_a, t.meta_b]
 
 
+def _same(got, want, what):
+    assert len(got) == len(want), what
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.numpy()
+        w = np.asarray(w).astype(np.int64).astype(g.dtype) \
+            if g.dtype != np.bool_ else np.asarray(w).astype(bool)
+        np.testing.assert_array_equal(g, w, err_msg=f"{what}: output {i}")
+
+
+#: the route's outputs: sanitized keys (int32 bit patterns) and sets
+def _routed(jq, sets):
+    return (np.asarray(jq).view(np.int32), np.asarray(sets))
+
+
 @pytest.mark.parametrize("policy", ALL_POLICIES)
-@pytest.mark.parametrize("ways", [1, 4, 8])
+@pytest.mark.parametrize("ways", [1, 4, 8, 32, 128])
 @pytest.mark.parametrize("variant", ["hits", "victim", "order"])
 def test_kway_probe_ref_matches_reference(policy, ways, variant):
-    s, b = 8, 48                        # 48 queries into 8 sets: collisions
+    """Kernel 1's plain version routes raw keys itself: == the reference's
+    route, then its ``kway_probe_ref``, at B 1 and 257 (collisions,
+    duplicates, EMPTY keys), 8 sets."""
+    s = 8
     st = _state(s, ways, seed=ways * 7 + int(policy))
-    qk, sets, times, _ = _queries(s, b, seed=ways)
     kw = dict(full_order=variant == "order", need_victims=variant != "hits")
-    want = jref.kway_probe_ref(
-        *_j_lanes(st), jnp.asarray(sets), jnp.asarray(qk).astype(jnp.int32),
-        jnp.asarray(times), policy=JPolicy(int(policy)), ways=ways, **kw)
-    got = tref.kway_probe_ref(
-        *_t_lanes(st), torch.from_numpy(sets), th.key_tensor(qk, "cpu"),
-        torch.from_numpy(times), policy=policy, **kw)
-    assert len(got) == len(want)
-    for i, (g, w) in enumerate(zip(got, want)):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
-                                      err_msg=f"output {i}")
+    for b in (1, 257):
+        qk, _ = _raw_queries(b, seed=ways + b)
+        jq, sets, times = _j_route(s, qk, int(st["clock"]))
+        want = jref.kway_probe_ref(
+            *_j_lanes(st), sets, jq.astype(jnp.int32), times,
+            policy=JPolicy(int(policy)), ways=ways, **kw)
+        tst = tkway.state_from_numpy(st, device="cpu")
+        got = tref.kway_probe_ref(
+            *_t_lanes(st), th.key_tensor(qk, "cpu"), tst.clock,
+            num_sets=s, seed=0x51CA, policy=policy, **kw)
+        _same(got, _routed(jq, sets) + tuple(want), f"B={b}")
 
 
 @pytest.mark.parametrize("policy", ALL_POLICIES)
-@pytest.mark.parametrize("ways", [1, 4, 8])
+@pytest.mark.parametrize("ways", [1, 4, 8, 32, 128])
 def test_kway_fused_probe_ref_matches_reference(policy, ways):
-    s, b = 8, 48
+    """Kernel 2's plain version routes raw keys itself: == the reference's
+    route, then its ``kway_fused_probe_ref`` with the put times t+B+i, at
+    B 1 and 257, with an enable mask and with none."""
+    s = 8
     st = _state(s, ways, seed=ways * 11 + int(policy))
-    qk, sets, tg, en = _queries(s, b, seed=ways + 3)
-    tp = tg + b
-    want = jref.kway_fused_probe_ref(
-        *_j_lanes(st), jnp.asarray(sets), jnp.asarray(qk).astype(jnp.int32),
-        jnp.asarray(tg), jnp.asarray(tp), jnp.asarray(en.astype(np.int32)),
-        policy=JPolicy(int(policy)), ways=ways)
-    got = tref.kway_fused_probe_ref(
-        *_t_lanes(st), torch.from_numpy(sets), th.key_tensor(qk, "cpu"),
-        torch.from_numpy(tg), torch.from_numpy(tp), torch.from_numpy(en),
-        policy=policy)
-    for i, (g, w) in enumerate(zip(got, want)):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
-                                      err_msg=f"output {i}")
+    tst = tkway.state_from_numpy(st, device="cpu")
+    for b in (1, 257):
+        qk, en = _raw_queries(b, seed=ways + 3 + b)
+        jq, sets, tg = _j_route(s, qk, int(st["clock"]))
+        for mask in (en, None):
+            jen = jnp.ones(b, jnp.int32) if mask is None \
+                else jnp.asarray(mask.astype(np.int32))
+            want = jref.kway_fused_probe_ref(
+                *_j_lanes(st), sets, jq.astype(jnp.int32), tg, tg + b, jen,
+                policy=JPolicy(int(policy)), ways=ways)
+            got = tref.kway_fused_probe_ref(
+                *_t_lanes(st), th.key_tensor(qk, "cpu"), tst.clock,
+                None if mask is None else torch.from_numpy(mask),
+                num_sets=s, seed=0x51CA, policy=policy)
+            _same(got, _routed(jq, sets) + tuple(want),
+                  f"B={b} en={mask is not None}")
+        if policy in (Policy.LRU, Policy.LFU, Policy.HYPERBOLIC):
+            assert torch.equal(tst.meta_a, torch.from_numpy(st["meta_a"]))
 
 
 def test_kernel_wrappers_take_the_plain_version_on_cpu():
     """On CPU tensors the wrappers compute the plain version and launch no
     kernel (there is none to build here)."""
-    st = _state(8, 4, seed=1)
-    qk, sets, times, en = _queries(8, 16, seed=1)
-    args = (*_t_lanes(st), torch.from_numpy(sets), th.key_tensor(qk, "cpu"))
+    st = tkway.state_from_numpy(_state(8, 4, seed=1), device="cpu")
+    qk, en = _raw_queries(16, seed=1)
+    args = (st.keys, st.fprint, st.meta_a, st.meta_b,
+            th.key_tensor(qk, "cpu"), st.clock)
+    route = dict(num_sets=8, seed=0x51CA)
     before = dict(tkp.LAUNCHES)
-    got = tkp.kway_probe(*args, torch.from_numpy(times),
-                         policy=Policy.LRU, full_order=True)
-    want = tref.kway_probe_ref(*args, torch.from_numpy(times),
-                               policy=Policy.LRU, full_order=True)
+    got = tkp.kway_probe(*args, policy=Policy.LRU, full_order=True, **route)
+    want = tref.kway_probe_ref(*args, policy=Policy.LRU, full_order=True,
+                               **route)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    tkp.kway_fused_probe(*args, torch.from_numpy(times),
-                         torch.from_numpy(times + 16), torch.from_numpy(en),
-                         policy=Policy.LFU)
+    tkp.kway_fused_probe(*args, torch.from_numpy(en), policy=Policy.LFU,
+                         **route)
     assert tkp.LAUNCHES == before
     with pytest.raises(ValueError):
-        tkp.kway_probe(*args, torch.from_numpy(times), policy=Policy.LRU,
-                       full_order=True, need_victims=False)
+        tkp.kway_probe(*args, policy=Policy.LRU, full_order=True,
+                       need_victims=False, **route)
 
 
 @pytest.mark.parametrize("policy", [Policy.LRU, Policy.HYPERBOLIC])

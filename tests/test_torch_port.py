@@ -317,3 +317,87 @@ def test_replay_hier_l1_form_by_size(monkeypatch, l1, l2_ways, expiry, form):
                                                   <= 32 else 2)
     assert l1_bytes == 4 * (5 + expiry) * l1[0] * l1[1]
     assert krp.hier_l1_form(cfg, hc, expiry, "cpu") == form
+
+
+@pytest.mark.parametrize("sets,ways,batch,tinylfu,need,fits", [
+    # chip_smoke.py's configuration: 4 warps x (16 + 3 x 128) ints
+    (131072, 8, 1024, False, 6400, True),
+    # 2^26-entry caches at B = 8192: the owners form's scratch overflows
+    (2**23, 8, 8192, False, 409600, False),
+    (2**22, 16, 8192, False, 401408, False),
+    (2**20, 64, 8192, False, 395264, False),
+    (32, 8, 16384, False, 6400, True),       # MAX_BATCH lanes
+    (32, 8, 16385, False, 6400, False),      # one lane over MAX_BATCH
+    # TinyLFU's grid form: one warp's scratch (2^14 sets an owner, a bit
+    # per lane) on each side of the opt-in
+    (2**27, 1, 13760, True, 232376, True),
+    (2**27, 1, 13792, True, 232764, False),
+    (32, 8, 15, True, 210, True),            # block form: 14 B a lane
+])
+def test_replay_resident_fits_by_size(monkeypatch, sets, ways, batch, tinylfu,
+                                      need, fits):
+    """Kernel 3 takes a shape exactly when its chunks hold at most
+    MAX_BATCH lanes and its form's shared memory fits the opt-in per block
+    (232,448 B on an H100), with the C code's formula: 4 warps x 4 B x
+    (sets an owner + 3 x min(B, ways x sets an owner)) for the owners form,
+    one warp's share plus a bit per lane for the grid form."""
+    from repro_torch.kernels import replay as krp
+    monkeypatch.setattr(krp, "_smem_optin", lambda device: 232448)
+    cfg = KWayConfig(num_sets=sets, ways=ways)
+    assert krp.resident_smem_bytes(cfg, batch, tinylfu) == need
+    assert krp.resident_fits(cfg, batch, tinylfu, "cpu") is fits
+
+
+def test_size_rules_read_no_shared_memory_off_the_card():
+    """Off the card the wrappers run the plain versions, which use no
+    shared memory: the rules on size read no opt-in there, and only kernel
+    3's batch limit stands."""
+    from repro_torch.kernels import replay as krp
+    assert krp._smem_optin(torch.device("cpu")) is None
+    cfg = KWayConfig(num_sets=2**23, ways=8)
+    assert krp.resident_smem_bytes(cfg, 8192, False) == 409600
+    assert krp.resident_fits(cfg, 8192, False, "cpu")
+    assert not krp.resident_fits(cfg, krp.MAX_BATCH + 1, False, "cpu")
+
+
+@pytest.mark.parametrize("case", ["batch", "smem", "tinylfu-smem"])
+def test_cuda_replay_takes_the_chunked_path_where_kernel3_does_not_fit(
+        monkeypatch, case):
+    """Where the rule says no, ``CudaBackend.replay`` records one
+    ``smem_budget`` event and returns the chunked path's results (equal to
+    the torch twin's); kernel 3's entry is never reached."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import replay as krp
+    from repro_torch.robust import events
+    optin = 232448 if case == "batch" else 400
+    monkeypatch.setattr(krp, "_smem_optin", lambda device: optin)
+
+    def refused(*args, **kw):
+        raise AssertionError("kernel 3 was called")
+
+    monkeypatch.setattr(ops, "replay_resident", refused)
+    monkeypatch.setattr(krp, "replay_resident", refused)
+    cfg = KWayConfig(num_sets=16, ways=2)
+    batch = krp.MAX_BATCH + 1 if case == "batch" else 64
+    tl = admission.for_capacity(cfg.capacity) if case == "tinylfu-smem" \
+        else None
+    assert not krp.resident_fits(cfg, batch, tl is not None, "cpu")
+    rng = np.random.default_rng(4)
+    tr = rng.integers(0, 200, 2 * batch).astype(np.uint32)
+    chunks, en = tr.reshape(2, batch), np.ones((2, batch), bool)
+    en[1, -5:] = False
+    cb = make_backend("cuda", cfg, device="cpu")
+    tb = make_backend("torch", cfg, device="cpu")
+    cur = events.cursor()
+    got = cb.replay(cb.init(), chunks, en, tinylfu=tl)
+    new = events.since(cur)
+    assert len(new) == 1 and (new[0].component, new[0].reason,
+                              new[0].fallback_to) == (
+        "cuda.replay", "smem_budget", "cuda-scan")
+    want = tb.replay(tb.init(), chunks, en, tinylfu=tl)
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(g, w)
+    for f in ("keys", "fprint", "vals", "meta_a", "meta_b", "clock"):
+        assert torch.equal(getattr(got[2], f), getattr(want[2], f)), f
+    if tl is not None:
+        assert torch.equal(got[3].packed, want[3].packed)
