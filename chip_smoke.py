@@ -73,7 +73,16 @@ serving slice:
      decode_steps times and kernel 1 ran), every layer's kernel-5 inputs of
      one decode step captured; the ``torch`` backend's run equal in stats,
      pages, prefix hits and tokens; one wave under torch.profiler; the
-     serving CLI once;
+     serving CLI once; then the device-resident tick
+     (``EngineConfig(jitted=True)``, CUDA graphs) on the same requests,
+     and with decode_block=4 and TinyLFU, each held to the host loop
+     (stats, hit ratio, per-request token counts and prefix hits equal,
+     tokens equal or a bf16 tie), its replays run under
+     ``set_sync_debug_mode("error")``, one capture per graph kind; two
+     profiled waves count kernels 2, 1 and 5 as device rows of the
+     replays (the wrappers' counters move only at capture); tokens/s of
+     the tick and the host loop in turns (host / tick / tick / host, 3
+     rounds);
  10. kernel 5 (``paged_attention``) against its plain version on the
      captured inputs (bf16 at 3e-2, float32 at 2e-5 with TF32 off) and on
      a GQA + softcap case, then timed round-robin over the captured layers
@@ -90,12 +99,16 @@ it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import itertools
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -1530,14 +1543,16 @@ class CaptureStep:
         return self.kernel(q, k_pages, v_pages, page_table, seq_lens, **kw)
 
 
-def drive_engine(cfg, model, backend, prompts, dev, max_new=None):
+def drive_engine(cfg, model, backend, prompts, dev, max_new=None, **kw):
     """Submit the prompts (``max_new`` None: SERVE_MAX_NEW), ``Engine.run``
-    on ``backend`` -> (stats, {rid: (tokens, pages, prefix_hits)}, host
-    seconds of run, hit ratio)."""
+    on ``backend`` (the host loop; ``kw`` overrides SERVE_ENGINE) ->
+    (stats, {rid: (tokens, pages, prefix_hits)}, host seconds of run, hit
+    ratio)."""
     from repro_torch.core.policies import Policy
     from repro_torch.serve.engine import Engine, EngineConfig
     eng = Engine(cfg, model, EngineConfig(policy=Policy.LRU, backend=backend,
-                                          **SERVE_ENGINE), device=dev)
+                                          **dict(SERVE_ENGINE, **kw)),
+                 device=dev)
     for p in prompts:
         eng.submit(p, max_new=max_new or SERVE_MAX_NEW)
     sync(dev)
@@ -1552,12 +1567,15 @@ def drive_engine(cfg, model, backend, prompts, dev, max_new=None):
 
 def serve_busy_share(card, cfg, model, prompts, dev):
     """Where the serving time goes: one wave (``max_batch`` requests,
-    SERVE_PROFILE_MAX_NEW new tokens each) on the ``cuda`` backend under
-    torch.profiler: host wall, device busy share, the costliest device ops
-    and the costliest host ops (self CPU time)."""
+    SERVE_PROFILE_MAX_NEW new tokens each) on the ``cuda`` backend, first
+    unprofiled (its host wall), then under torch.profiler: device busy over
+    the unprofiled wall (and over the profiled wall, which the profiler
+    stretches), the costliest device ops and the costliest host ops (self
+    CPU time)."""
     from torch.profiler import ProfilerActivity, profile
     wave = prompts[:SERVE_ENGINE["max_batch"]]
-    drive_engine(cfg, model, "cuda", wave, dev, SERVE_PROFILE_MAX_NEW)
+    _, _, plain, _ = drive_engine(cfg, model, "cuda", wave, dev,
+                                  SERVE_PROFILE_MAX_NEW)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         st, reqs, wall, _ = drive_engine(cfg, model, "cuda", wave, dev,
@@ -1574,9 +1592,11 @@ def serve_busy_share(card, cfg, model, prompts, dev):
 
     say(card, f"serving, {len(wave)} requests ({st['prefills']} prefills, "
               f"{st['decode_steps']} decode steps, {SERVE_PROFILE_MAX_NEW} "
-              f"new tokens per request) under torch.profiler: wall "
-              f"{wall * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
-              f"({busy_us / 1e3 / (wall * 1e3):.1%}); top device ops: "
+              f"new tokens per request): unprofiled wall {plain * 1e3:.1f} "
+              f"ms; under torch.profiler device busy {busy_us / 1e3:.1f} ms "
+              f"= {busy_us / 1e3 / (plain * 1e3):.1%} of the unprofiled wall "
+              f"(of the profiled wall {wall * 1e3:.1f} ms: "
+              f"{busy_us / 1e3 / (wall * 1e3):.1%}); top device ops: "
               f"{top(dev_ops, 8)}; top host ops (self CPU): "
               f"{top(host_ops, 8)} (profile read in "
               f"{time.perf_counter() - t0:.1f} s)")
@@ -1663,7 +1683,8 @@ def phase_serve_path(card, dev, results, serve):
     if len(reqs) != SERVE_REQUESTS or st["prefills"] != SERVE_REQUESTS:
         raise AssertionError(f"served {len(reqs)} requests, stats {st}")
     n_tok = sum(len(t) for t, _, _ in reqs.values())
-    serve.update(inputs=cap.inputs, stats=st)
+    serve.update(inputs=cap.inputs, stats=st, model=model,
+                 prompts=prompts, host=(st, reqs, wall, hr))
     results["paged_attention"].update(
         serve_tokens=n_tok, serve_s=wall, serve_tokens_per_s=n_tok / wall,
         serve_hit_ratio=hr, serve_decode_steps=st["decode_steps"])
@@ -1679,12 +1700,327 @@ def phase_serve_path(card, dev, results, serve):
               f"hits and tokens of all {len(reqs)} requests ({wall2:.3f} s "
               f"host wall)")
     serve_busy_share(card, cfg, model, prompts, dev)
-    del model
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     serve_cli.main(["--backend", "cuda", "--requests", "16"])
     say(card, f"repro_torch.launch.serve.main (smoke config, cuda backend) "
               f"ran in {time.perf_counter() - t0:.1f} s")
+
+
+#: the serving tick's timing: rounds of host loop / tick / tick / host loop
+SERVE_TICK_ROUNDS = 3
+#: device kernels of the tick, by a substring of their names in a trace
+TICK_KERNELS = {"kway_fused_probe": "fused_kernel",
+                "kway_probe": "probe_kernel",
+                "paged_attention": "paged_attention_kernel"}
+
+
+def build_tick(cfg, model, dev, **kw):
+    """A device-resident tick engine (``jitted=True``, cuda backend; ``kw``
+    overrides SERVE_ENGINE), its capture counts reset just before ->
+    (engine, seconds of its warm-up and capture, captures by kind)."""
+    from repro_torch.core.policies import Policy
+    from repro_torch.serve import engine as teng
+    teng.reset_capture_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    eng = teng.Engine(cfg, model, teng.EngineConfig(
+        policy=Policy.LRU, backend="cuda", jitted=True,
+        **dict(SERVE_ENGINE, **kw)), device=dev)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    caps = {k[-1]: v for k, v in teng.capture_counts().items()}
+    if sorted(caps) != sorted(teng.KINDS) or any(v != 1 for v in
+                                                 caps.values()):
+        raise AssertionError(f"tick captures {caps}: want one per kind")
+    return eng, build_s, caps
+
+
+def drive_tick(cfg, model, prompts, dev, max_new=None, profiled=False,
+               **kw):
+    """``drive_engine`` for the tick: build (warm-up and capture, outside
+    the timed run), submit, ``Engine.run`` with
+    ``torch.cuda.set_sync_debug_mode("error")`` on everywhere but the one
+    fetch per tick (a replay that synchronised would raise) ->
+    (stats, {rid: (tokens, prefix_hits)}, host seconds of run, hit ratio,
+    dict(build_s, ticks, launches: the tick kernels' launches by name, each
+    graph's launches at capture times its replays, and with ``profiled``
+    rows: the run's device rows of those kernels, the run under
+    torch.profiler, replays only, the build outside it))."""
+    from torch.profiler import ProfilerActivity, profile
+    eng, build_s, caps = build_tick(cfg, model, dev, **kw)
+    for p in prompts:
+        eng.submit(p, max_new=max_new or SERVE_MAX_NEW)
+    fetch = eng._fetch
+
+    def fetch_synced():
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return fetch()
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    eng._fetch = fetch_synced
+    sync(dev)
+    prof = (profile(activities=[ProfilerActivity.CUDA]) if profiled
+            else contextlib.nullcontext())
+    t0 = time.perf_counter()
+    with prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fin = eng.run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sync(dev)
+    wall = time.perf_counter() - t0
+    from repro_torch.serve import engine as teng
+    if {k[-1]: v for k, v in teng.capture_counts().items()} != caps:
+        raise AssertionError("the tick captured again during its run")
+    reqs = {rid: (r.generated, r.prefix_hits) for rid, r in fin.items()}
+    # each replay launches every kernel its graph holds, as the wrappers
+    # counted them at capture
+    info = dict(build_s=build_s, ticks=dict(eng.ticks), launches={
+        k: sum(eng.graph_launches[kind].get(k, 0) * n
+               for kind, n in eng.ticks.items()) for k in TICK_KERNELS})
+    if profiled:
+        rows = tick_rows(prof)
+        info["rows"] = {k: sum(c for key, c, _ in rows if sub in key)
+                        for k, sub in TICK_KERNELS.items()}
+    return eng.stats, reqs, wall, eng.hit_ratio(), info
+
+
+def tick_rows(prof):
+    """The device kernel rows of a torch.profiler run -> [(name, count,
+    device us)]."""
+    from torch.autograd import DeviceType
+    return [(ev.key, ev.count, ev.self_device_time_total)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)]
+
+
+def check_tick_tokens(cfg, model, prompts, host_reqs, tick_reqs, dev):
+    """Per request: equal token counts and prefix hits; tokens equal, or
+    at the first divergence the two tokens tie within 3e-2 in the logits
+    of a prefill of the common prefix on the card (bf16: the tick prefills
+    8 lanes at once, the host loop one) -> (requests equal throughout,
+    the largest gap at a divergence)."""
+    from repro_torch.serve import paged_model as pm
+    equal, gap = 0, 0.0
+    for rid, (htoks, _, hph) in host_reqs.items():
+        ttoks, tph = tick_reqs[rid]
+        if len(ttoks) != len(htoks) or tph != hph:
+            raise AssertionError(f"request {rid}: {len(ttoks)} tokens, "
+                                 f"{tph} prefix hits on the tick; "
+                                 f"{len(htoks)}, {hph} on the host loop")
+        diff = [i for i, (a, b) in enumerate(zip(htoks, ttoks)) if a != b]
+        if not diff:
+            equal += 1
+            continue
+        i = diff[0]
+        seq = np.concatenate([prompts[rid], htoks[:i]]).astype(np.int32)
+        logits, _, _ = pm.prefill_padded(
+            cfg, model, torch.from_numpy(seq[None]).to(dev))
+        lg = logits[0].float().cpu()
+        a, b = htoks[i], ttoks[i]
+        d = float((lg[a] - lg[b]).abs())
+        if d > 3e-2 + 3e-2 * abs(float(lg[a])):
+            raise AssertionError(f"request {rid} token {i}: {a} (host loop)"
+                                 f" vs {b} (tick) is no bf16 tie: {d}")
+        gap = max(gap, d)
+    return equal, gap
+
+
+def profile_tick_wave(card, cfg, model, prompts, dev):
+    """Where the tick's time goes: one wave (``max_batch`` requests,
+    SERVE_PROFILE_MAX_NEW new tokens) run twice on fresh engines, first
+    unprofiled (host ms of the admit tick and per decode tick, each ending
+    in its one sync), then under torch.profiler (device busy, kernels per
+    tick, the costliest device ops).  The busy share is the profiled
+    device time over the unprofiled wall: the profiler's own host work
+    stretches the profiled wall (printed beside it) -> that share."""
+    from torch.profiler import ProfilerActivity, profile
+    wave = prompts[:SERVE_ENGINE["max_batch"]]
+    windows = []
+    for profiled in (False, True):
+        eng, _, _ = build_tick(cfg, model, dev)
+        for p in wave:
+            eng.submit(p, max_new=SERVE_PROFILE_MAX_NEW)
+        for first in (True, False):
+            steps0 = dict(eng.ticks)
+            prof = (profile(activities=[ProfilerActivity.CUDA]) if profiled
+                    else contextlib.nullcontext())
+            sync(dev)
+            t0 = time.perf_counter()
+            with prof:
+                eng.step() if first else eng.run()
+                sync(dev)
+            win = dict(wall=(time.perf_counter() - t0) * 1e3,
+                       ticks={k: eng.ticks[k] - steps0.get(k, 0)
+                              for k in eng.ticks})
+            if profiled:
+                rows = tick_rows(prof)
+                win.update(rows=sum(c for _, c, _ in rows),
+                           busy=sum(t for _, _, t in rows) / 1e3,
+                           top=[(t, k) for k, _, t in rows])
+            windows.append(win)
+        del eng
+        gc.collect()
+    plain_admit, plain_dec, admit, dec = windows
+    n_dec = dec["ticks"].get("decode", 0)
+    if plain_dec["ticks"] != dec["ticks"] or admit["ticks"] != {"admit": 1}:
+        raise AssertionError(f"the two waves ran other ticks: "
+                             f"{[w['ticks'] for w in windows]}")
+    wall = plain_admit["wall"] + plain_dec["wall"]
+    pwall = admit["wall"] + dec["wall"]
+    busy = admit["busy"] + dec["busy"]
+    top = ", ".join(f"{k[:40]} {t / 1e3:.1f} ms" for t, k in
+                    sorted(admit["top"] + dec["top"], reverse=True)[:6])
+    say(card, f"serving tick wave: one wave ({len(wave)} requests, "
+              f"{SERVE_PROFILE_MAX_NEW} new tokens each; 1 admit tick, "
+              f"{n_dec} decode ticks): unprofiled wall {wall:.2f} ms (admit "
+              f"tick {plain_admit['wall']:.2f} ms, decode tick "
+              f"{plain_dec['wall'] / max(n_dec, 1):.3f} ms; host clock, each "
+              f"ending in its one sync); under torch.profiler device busy "
+              f"{busy:.1f} ms (admit tick {admit['busy']:.1f}, decode tick "
+              f"{dec['busy'] / max(n_dec, 1):.3f}) = {busy / wall:.1%} of the "
+              f"unprofiled wall (of the profiled wall {pwall:.1f} ms, which "
+              f"the profiler stretches: {busy / pwall:.1%}); device kernels: "
+              f"admit tick {admit['rows']}, per decode tick "
+              f"{dec['rows'] / max(n_dec, 1):.1f}; host launches per tick: "
+              f"one graph; top device ops: {top}")
+    return busy / wall, busy / pwall
+
+
+def phase_serve_tick(card, dev, results, serve):
+    """The device-resident serving tick (``EngineConfig(jitted=True)``) at
+    full width through ``Engine.submit`` / ``Engine.run``: CUDA graphs
+    captured once per kind, replays that never synchronise, stats, hit
+    ratio and per-request token counts equal to ``phase_serve_path``'s host
+    loop (tokens by the bf16-tie rule); again with decode_block=4 and with
+    TinyLFU (kernel 1 in the admit graph), each against the host loop
+    under the same config; kernel launches counted as each graph's launches
+    at capture times its replays, and seen as device rows of profiled
+    replays; tokens/s of the tick and the host loop in turns."""
+    cfg = serve_config()
+    model, prompts = serve["model"], serve["prompts"]
+    torch.cuda.reset_peak_memory_stats()
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def run_tick(label, host, **kw):
+        st, reqs, wall, hr, info = drive_tick(cfg, model, prompts, dev,
+                                              profiled=True, **kw)
+        free()
+        hst, hreqs, hwall, hhr = host
+        if st != hst or hr != hhr:
+            raise AssertionError(f"{label}: tick stats {st}, hit ratio "
+                                 f"{hr!r}; host loop {hst}, {hhr!r}")
+        equal, gap = check_tick_tokens(cfg, model, prompts, hreqs, reqs, dev)
+        n_tok = sum(len(t) for t, _ in reqs.values())
+        # the Python launch counters move only at capture: the launches of
+        # this checked run are each graph's launches at capture times its
+        # replays, every tick a graph replay; every tick runs decode_block
+        # decode steps' layers (a step with no lane active still launches
+        # them: the graph is fixed; at decode_block=1 every tick of this
+        # traffic decodes, so kernel 5 is 30 x decode_steps there)
+        burst = kw.get("decode_block", 1) * sum(info["ticks"].values())
+        lanes = SERVE_ENGINE["max_batch"] * info["ticks"].get("admit", 0)
+        want = {"paged_attention": cfg.num_layers * burst,
+                "kway_fused_probe": lanes,
+                "kway_probe": lanes if kw.get("tinylfu") else 0}
+        launches, rows = info["launches"], info["rows"]
+        if launches != want or (not kw and burst != st["decode_steps"]):
+            raise AssertionError(f"{label}: launches {launches}, want {want}"
+                                 f" (kernel 5: {cfg.num_layers} x "
+                                 f"decode_block x ticks, {burst}, with "
+                                 f"{st['decode_steps']} decode steps; "
+                                 f"kernels 2, 1: one per lane of each admit "
+                                 f"tick)")
+        # the device rows of the profiled replays show that the kernels ran
+        # on the card; CUPTI may drop records of a long trace (1906 of 1920
+        # kernel-5 rows in one H100 run), so a row count is checked against
+        # the launches as a bound, never as the count itself
+        if any(rows[k] > launches[k] or (rows[k] == 0) != (launches[k] == 0)
+               for k in want):
+            raise AssertionError(f"{label}: device rows {rows} of launches "
+                                 f"{launches}: a kernel ran no time, or "
+                                 f"more often than its graphs launch it")
+        say(card, f"{label}: tick == host loop in stats {st}, hit ratio "
+                  f"{hr!r}, per-request token counts and prefix hits; "
+                  f"{equal} of {len(reqs)} requests' tokens equal, the rest "
+                  f"diverge at a bf16 tie (largest logit gap {gap:.4g}); "
+                  f"ticks {info['ticks']} (every tick a replay), warm-up + "
+                  f"capture {info['build_s']:.2f} s; launches (each "
+                  f"graph's at capture x its replays) {launches}, device "
+                  f"rows of this run's replays under torch.profiler {rows}; "
+                  f"{n_tok} tokens in "
+                  f"{wall:.3f} s under torch.profiler (host loop "
+                  f"{n_tok / hwall:.1f} tokens/s; unprofiled times below)")
+        return info
+
+    counts, rows = Counter(), Counter()
+    for label, kw in (("serving tick (decode_block=1)", {}),
+                      ("serving tick (decode_block=4)",
+                       dict(decode_block=4)),
+                      ("serving tick (tinylfu)", dict(tinylfu=True))):
+        if kw:
+            host = drive_engine(cfg, model, "cuda", prompts, dev, **kw)
+            free()
+        else:
+            host = serve["host"]
+        info = run_tick(label, host, **kw)
+        if not kw:
+            build_s = info["build_s"]
+        counts.update(info["launches"])
+        rows.update(info["rows"])
+    for name, c in counts.items():
+        if c <= 0 or rows[name] <= 0:
+            raise AssertionError(f"kernel {name} ran no time in the tick's "
+                                 f"replays: launches {dict(counts)}, device "
+                                 f"rows {dict(rows)}")
+        results[name]["launches"] = results[name].get("launches", 0) + c
+    say(card, f"main path (serving tick, the three checked runs) launches, "
+              f"each graph's at capture x its replays: {dict(counts)}; "
+              f"device rows of those replays under torch.profiler: "
+              f"{dict(rows)}")
+
+    busy, busy_profiled = profile_tick_wave(card, cfg, model, prompts, dev)
+    free()
+
+    runs = {"host": [], "tick": []}
+    for r in range(SERVE_TICK_ROUNDS):
+        for side in ("host", "tick", "tick", "host"):
+            if side == "host":
+                st, reqs, wall, _ = drive_engine(cfg, model, "cuda",
+                                                 prompts, dev)
+                n_tok = sum(len(t) for t, _, _ in reqs.values())
+            else:
+                st, reqs, wall, _, _ = drive_tick(cfg, model, prompts, dev)
+                n_tok = sum(len(t) for t, _ in reqs.values())
+            free()
+            runs[side].append(n_tok / wall)
+            say(card, f"serving timing round {r + 1}, {side}: {n_tok} "
+                      f"tokens in {wall:.4f} s = {n_tok / wall:.2f} tokens/s")
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    say(card, f"serving tokens/s, {SERVE_TICK_ROUNDS} rounds of host / tick "
+              f"/ tick / host: tick {runs['tick']} (median {med['tick']:.2f})"
+              f", host loop {runs['host']} (median {med['host']:.2f}); "
+              f"tick slowest {min(runs['tick']):.2f} vs host fastest "
+              f"{max(runs['host']):.2f}")
+    peak = torch.cuda.max_memory_allocated()
+    say(card, f"serving tick: peak device memory {peak} B "
+              f"(torch.cuda.max_memory_allocated, weights, the host loop's "
+              f"and the tick's pools and the graphs' pool)")
+    results["paged_attention"].update(
+        serve_tick_tokens_per_s=med["tick"],
+        serve_tick_host_tokens_per_s=med["host"],
+        serve_tick_runs=runs, serve_tick_busy_share=busy,
+        serve_tick_busy_share_of_profiled_wall=busy_profiled,
+        serve_tick_capture_s=build_s, serve_tick_peak_bytes=peak)
+    del serve["model"]
+    free()
 
 
 def _pa_pairs(args, softcap_kw):
@@ -1878,12 +2214,12 @@ def phase_paged_attention_timing(card, dev, results, serve):
               f"device time {fmt_ms(dev0)} (torch.profiler, 50 calls), "
               f"library_ms {lib0:.4f}")
     say_previous(card, "paged_attention")
-    steps = serve["stats"]["decode_steps"]
-    say(card, f"serving: {r['serve_tokens_per_s']:.1f} tokens/s, "
-              f"{steps} decode steps x {n} layers = {r['launches']} "
-              f"kernel-5 launches; kernel 5 at {ms:.4f} ms would be "
-              f"{ms * r['launches'] / 1e3:.3f} s of the {r['serve_s']:.3f} s "
-              f"run")
+    host_launches = n * serve["stats"]["decode_steps"]
+    say(card, f"serving (host loop): {r['serve_tokens_per_s']:.1f} tokens/s,"
+              f" {serve['stats']['decode_steps']} decode steps x {n} layers "
+              f"= {host_launches} kernel-5 launches; kernel 5 at {ms:.4f} ms "
+              f"would be {ms * host_launches / 1e3:.3f} s of the "
+              f"{r['serve_s']:.3f} s run")
 
 
 def main() -> int:
@@ -1972,6 +2308,7 @@ def main() -> int:
             (phase_timing, (trace, dev, results)),
             (phase_serve_agreement, (dev,)),
             (phase_serve_path, (dev, results, serve)),
+            (phase_serve_tick, (dev, results, serve)),
             (phase_paged_attention_kernel, (dev, results, serve)),
             (phase_paged_attention_timing, (dev, results, serve))):
         t0 = time.perf_counter()

@@ -105,6 +105,9 @@ class CacheBackend:
     ``access`` (get; on miss, put) and ``replay`` are derived."""
 
     name = "?"
+    #: tensor ops only, no host round trip: a CUDA graph can capture it
+    #: (False: host Python)
+    traceable = True
 
     def __init__(self, cfg: KWayConfig, device: torch.device):
         self.cfg = cfg
@@ -355,6 +358,8 @@ class RefBackend(CacheBackend):
     imports the state into a ``RefKWay``, replays the batch one lane at a
     time (a disabled lane still consumes a timestamp) and exports back.
     Bit-identical to the others at batch size 1."""
+
+    traceable = False
 
     def replay(self, state, chunks, enabled, tinylfu=None, sketch=None,
                hierarchy=None, ttls=None):

@@ -143,3 +143,31 @@ def prefix_block_hashes(tokens: np.ndarray, page: int) -> np.ndarray:
         out = np.bitwise_xor.accumulate(_fmix32_np(h ^ salt)).astype(np.uint32)
     out[out == np.uint32(EMPTY_KEY)] = np.uint32(1)
     return out
+
+
+def prefix_block_hashes_t(tokens: torch.Tensor, page: int) -> torch.Tensor:
+    """Device twin of ``prefix_block_hashes`` for fixed-width token lanes.
+
+    ``tokens`` an integer tensor [..., n*page] (padded prompt lanes) ->
+    int64 [..., n] chain hashes in [0, 2^32) over ALL n blocks.  The first
+    ``len(prompt) // page`` of a lane are those of the numpy form (the
+    chain is a prefix scan, so padding never reaches a real block); the
+    caller masks the rest.  Fixed shapes and no host sync, so a CUDA graph
+    can capture it: torch has no cumulative XOR, so the chain is
+    ``log2(n)`` shift-and-XOR steps (an inclusive Hillis-Steele scan).
+    """
+    n = tokens.shape[-1] // page
+    blocks = as_u32(tokens[..., : n * page]).reshape(*tokens.shape[:-1], n,
+                                                     page)
+    h = torch.full(blocks.shape[:-1], _FNV_OFFSET, dtype=torch.int64,
+                   device=tokens.device)
+    for j in range(page):
+        h = _mul32(h ^ blocks[..., j], _FNV_PRIME)
+    salt = _mul32(torch.arange(1, n + 1, dtype=torch.int64,
+                               device=tokens.device), _GOLDEN)
+    out = _fmix32(h ^ salt)
+    shift = 1
+    while shift < n:
+        out = out ^ torch.nn.functional.pad(out[..., :-shift], (shift, 0))
+        shift *= 2
+    return torch.where(out == EMPTY_KEY, torch.ones_like(out), out)

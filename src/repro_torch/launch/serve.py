@@ -2,14 +2,16 @@
 engine, on the card unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
-        --smoke --requests 16 --policy lru [--tinylfu] [--decode-block 4] \\
-        [--backend torch|cuda|ref] [--device cpu]
+        --smoke --requests 16 --policy lru [--tinylfu] [--jitted] \\
+        [--decode-block 4] [--backend torch|cuda|ref] [--device cpu]
 
 Prints throughput, the prefix-cache hit ratio and the engine's stats.
 Counterpart of ``repro/launch/serve.py`` with the same flags and traffic
 (a shared prefix plus a random tail per request, random weights from
-``--seed``); ``--jitted`` is refused (the device-resident tick is not
-ported yet).
+``--seed``).  ``--jitted`` runs the device-resident serving tick instead
+of the host loop: on the card two CUDA graphs (admit, decode) replayed
+with one host sync per tick, on the CPU the same body run eagerly;
+``--decode-block`` sets the decode burst both modes schedule.
 """
 from __future__ import annotations
 
@@ -40,10 +42,12 @@ def main(argv=None):
                          "probe kernels, or the Python oracle")
     ap.add_argument("--tinylfu", action="store_true")
     ap.add_argument("--jitted", action="store_true",
-                    help="device-resident serving tick (not ported yet: "
-                         "refused)")
+                    help="device-resident serving tick: CUDA graphs on the "
+                         "card, one host sync per tick (needs a traceable "
+                         "backend: torch or cuda)")
     ap.add_argument("--decode-block", type=int, default=1,
-                    help="decode steps per engine step")
+                    help="decode steps per engine tick (both modes run the "
+                         "same burst schedule)")
     ap.add_argument("--shared-prefix", type=int, default=48,
                     help="tokens shared by all prompts (prefix-cache fodder)")
     ap.add_argument("--seed", type=int, default=0)

@@ -11,16 +11,21 @@ Counterpart of ``repro/serve/paged_model.py``:
   * ``write_pages``     — write whole-page prefill K/V into the pool;
   * ``decode_paged``    — one decode token per sequence, attending through
     the page table with kernel 5 (``ops.attend_paged``) and writing the new
-    token's K/V into its current private page.
+    token's K/V into its current private page;
+  * ``write_pages_sink`` / ``decode_paged_sink`` — the same two pool
+    writers with no host sync, for the device-resident tick that a CUDA
+    graph captures: the lanes the host-loop forms leave out (by a boolean
+    index or ``nonzero``, which sync) write a *sink* page at the end of
+    the pool instead, which no page table names.
 
 The pool layout is [L, KVH, P, page, D], so ``pool_k[l]`` is the
 contiguous [KVH, P, page, D] slice kernel 5 reads.  Unlike the reference
-(immutable arrays), ``write_pages`` and ``decode_paged`` update the pools
-in place: a copy of a 4 GB pool per call would double its memory.  Lanes
-the reference routes out of bounds (dropped by its scatter) are masked
-out here, never clamped.  ``decode_paged`` attends globally on every
-layer, as the reference does: it ignores the sliding window (gemma2's
-local layers), which the prefill honours.
+(immutable arrays), the writers update the pools in place: a copy of a
+4 GB pool per call would double its memory.  Lanes the reference routes
+out of bounds (dropped by its scatter) are masked out or sent to the sink,
+never clamped.  The decode attends globally on every layer, as the
+reference does: it ignores the sliding window (gemma2's local layers),
+which the prefill honours.
 """
 from __future__ import annotations
 
@@ -79,6 +84,23 @@ def prefill_with_kv(cfg: ModelConfig, model: lm.LM, tokens):
     return prefill_padded(cfg, model, tokens)
 
 
+def _last_lanes(flat: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """The ``ok`` lanes whose page id no later ``ok`` lane repeats: the
+    last-write-wins outcome of the reference's sequential scatter.  Fixed
+    shape (an O(n^2) mask), so it needs no host sync."""
+    order = torch.arange(flat.numel(), device=flat.device)
+    later = (flat[None, :] == flat[:, None]) & ok[None, :] \
+        & (order[None, :] > order[:, None])
+    return ok & ~later.any(dim=1)
+
+
+def _page_blocks(src: torch.Tensor, page: int) -> torch.Tensor:
+    """K or V [L, B, S, KVH, D] -> whole pages [L, KVH, B * S // page,
+    page, D], the pool's layout."""
+    lnum, b, s, kvh, d = src.shape
+    return src.reshape(lnum, b * (s // page), page, kvh, d).movedim(3, 1)
+
+
 @torch.no_grad()
 def write_pages(cfg: ModelConfig, kv, slots, pool_k, pool_v, valid):
     """Write prefill K/V into whole pool pages, in place.
@@ -90,49 +112,46 @@ def write_pages(cfg: ModelConfig, kv, slots, pool_k, pool_v, valid):
     full of the prompt's hits); then the last block in order wins, as the
     reference's sequential scatter on the CPU gives.  -> (pool_k, pool_v).
     """
-    k, v = kv
-    lnum, b, s, kvh, d = k.shape
     page = pool_k.shape[3]
-    nb = s // page
     flat = slots.reshape(-1).to(pool_k.device).long()
-    ok = (flat >= 0) & valid.reshape(-1).to(pool_k.device)
-    # last occurrence of each page id among the written lanes
-    n = flat.numel()
-    order = torch.arange(n, device=flat.device)
-    later = (flat[None, :] == flat[:, None]) & ok[None, :] \
-        & (order[None, :] > order[:, None])
-    keep = ok & ~later.any(dim=1)
+    keep = _last_lanes(flat, (flat >= 0)
+                       & valid.reshape(-1).to(pool_k.device))
     idx = flat[keep]
-    for src, pool in ((k, pool_k), (v, pool_v)):
-        blocks = src.reshape(lnum, b * nb, page, kvh, d).movedim(3, 1)
-        pool[:, :, idx] = blocks[:, :, keep].to(pool.dtype)
+    for src, pool in ((kv[0], pool_k), (kv[1], pool_v)):
+        pool[:, :, idx] = _page_blocks(src, page)[:, :, keep].to(pool.dtype)
     return pool_k, pool_v
 
 
 @torch.no_grad()
-def decode_paged(cfg: ModelConfig, model: lm.LM, token, pos, pool_k, pool_v,
-                 page_table, active):
-    """One paged decode step, in place on the pools.
+def write_pages_sink(cfg: ModelConfig, kv, slots, pool_k, pool_v, valid):
+    """``write_pages`` with no host sync, for the captured serving tick.
 
-    ``token``, ``pos`` int32 [B] (pos == tokens so far); pools [L, KVH, P,
-    page, D]; ``page_table`` int32 [B, PPS]; ``active`` bool [B].  Inactive
-    lanes write nothing and attend over nothing.
-    -> (logits float32 [B, Vp], pool_k, pool_v)."""
-    dev = pool_k.device
-    token, pos = token.to(dev), pos.to(dev)
-    page_table, active = page_table.to(dev, torch.int32), active.to(dev)
-    b = token.shape[0]
+    The pools carry one extra page at the end, the *sink*, which no page
+    table names.  Every lane writes: a skipped lane, and a lane that a
+    later lane overwrites at the same page id, writes the sink, where the
+    reference routes it out of bounds for its scatter to drop.  Every
+    other page ends as ``write_pages`` leaves it; the sink's contents are
+    undefined.  -> (pool_k, pool_v)."""
     page = pool_k.shape[3]
+    sink = pool_k.shape[2] - 1
+    flat = slots.reshape(-1).to(pool_k.device).long()
+    keep = _last_lanes(flat, (flat >= 0)
+                       & valid.reshape(-1).to(pool_k.device))
+    idx = torch.where(keep, flat, sink)
+    for src, pool in ((kv[0], pool_k), (kv[1], pool_v)):
+        pool[:, :, idx] = _page_blocks(src, page).to(pool.dtype)
+    return pool_k, pool_v
+
+
+def _decode_layers(cfg: ModelConfig, model: lm.LM, token, pos, pool_k,
+                   pool_v, page_table, seq_with_new, lanes, cur_page,
+                   cur_off):
+    """The layers of one paged decode step: lanes ``lanes`` write their
+    new K/V at (``cur_page``, ``cur_off``), then every lane attends
+    through ``page_table`` over ``seq_with_new`` tokens (kernel 5) ->
+    float32 logits [B, Vp]."""
+    b = token.shape[0]
     x = _embed(cfg, model, token)[:, None, :]
-    seq_with_new = torch.where(active, pos + 1,
-                               torch.zeros_like(pos)).to(torch.int32)
-    lanes = torch.nonzero(active).flatten()
-    cur_page = page_table[lanes, (pos[lanes] // page).long()].long()
-    cur_off = (pos[lanes] % page).long()
-    # each active lane writes its own private page: index_put_ with a
-    # repeated index would be undefined on CUDA
-    if torch.unique(cur_page).numel() != cur_page.numel():
-        raise AssertionError("decode_paged: two lanes write one page")
     for li, block in enumerate(model.blocks):
         p = block.attn
         h = L.rms_norm(x, block.ln1, cfg.norm_eps)
@@ -148,4 +167,61 @@ def decode_paged(cfg: ModelConfig, model: lm.LM, token, pos, pool_k, pool_v,
                               softcap=cfg.attn_softcap)
         x = block.residual_mlp(
             cfg, x, o.reshape(b, 1, cfg.num_heads * cfg.hd) @ p["wo"])
-    return _logits(cfg, model, x[:, 0]), pool_k, pool_v
+    return _logits(cfg, model, x[:, 0])
+
+
+@torch.no_grad()
+def decode_paged(cfg: ModelConfig, model: lm.LM, token, pos, pool_k, pool_v,
+                 page_table, active):
+    """One paged decode step, in place on the pools.
+
+    ``token``, ``pos`` int32 [B] (pos == tokens so far); pools [L, KVH, P,
+    page, D]; ``page_table`` int32 [B, PPS]; ``active`` bool [B].  Inactive
+    lanes write nothing and attend over nothing.
+    -> (logits float32 [B, Vp], pool_k, pool_v)."""
+    dev = pool_k.device
+    token, pos = token.to(dev), pos.to(dev)
+    page_table, active = page_table.to(dev, torch.int32), active.to(dev)
+    page = pool_k.shape[3]
+    seq_with_new = torch.where(active, pos + 1,
+                               torch.zeros_like(pos)).to(torch.int32)
+    lanes = torch.nonzero(active).flatten()
+    cur_page = page_table[lanes, (pos[lanes] // page).long()].long()
+    cur_off = (pos[lanes] % page).long()
+    # each active lane writes its own private page: index_put_ with a
+    # repeated index would be undefined on CUDA
+    if torch.unique(cur_page).numel() != cur_page.numel():
+        raise AssertionError("decode_paged: two lanes write one page")
+    logits = _decode_layers(cfg, model, token, pos, pool_k, pool_v,
+                            page_table, seq_with_new, lanes, cur_page,
+                            cur_off)
+    return logits, pool_k, pool_v
+
+
+@torch.no_grad()
+def decode_paged_sink(cfg: ModelConfig, model: lm.LM, token, pos, pool_k,
+                      pool_v, page_table, active):
+    """``decode_paged`` with no host sync, for the captured serving tick.
+
+    Same arguments on one device, the pools with the sink page at the end
+    (see ``write_pages_sink``).  Inactive lanes write the sink (the
+    reference routes them out of bounds) and attend over nothing; the
+    check that no two active lanes write one page becomes a flag.
+    -> (logits float32 [B, Vp], clash bool []: two active lanes named one
+    page, where ``decode_paged`` raises)."""
+    b = token.shape[0]
+    page = pool_k.shape[3]
+    sink = pool_k.shape[2] - 1
+    lanes = torch.arange(b, device=token.device)
+    seq_with_new = torch.where(active, pos + 1,
+                               torch.zeros_like(pos)).to(torch.int32)
+    cur_page = torch.where(active, page_table[lanes, (pos // page).long()]
+                           .long(), sink)
+    cur_off = (pos % page).long()
+    clash = (active[:, None] & active[None, :]
+             & (cur_page[:, None] == cur_page[None, :])
+             & (lanes[:, None] != lanes[None, :])).any()
+    logits = _decode_layers(cfg, model, token, pos, pool_k, pool_v,
+                            page_table, seq_with_new, lanes, cur_page,
+                            cur_off)
+    return logits, clash

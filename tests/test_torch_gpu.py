@@ -700,3 +700,141 @@ def test_engine_on_the_card_backends_agree(cuda):
     eng_t, out_t = _serve_engine(cfg, model, "torch", cuda, prompts)
     assert eng_c.stats == eng_t.stats
     assert out_c == out_t
+
+
+# ---------------------------------------------------------------------------
+# the device-resident serving tick, captured as CUDA graphs
+# ---------------------------------------------------------------------------
+
+TICK_BASE = dict(page=8, num_sets=16, ways=4, max_batch=4, max_seq=128,
+                 private_pages=96, max_prompt=80, backend="cuda",
+                 jitted=True)
+
+
+def _tick_model(cuda):
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = configs.get("deepseek-7b").smoke
+    return cfg, lm.init_params(cfg, seed=0, device=cuda)
+
+
+def _tick_prompts(vocab, n, seed=0):
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(2, vocab - 1, 40)
+    return [np.concatenate([shared, rng.integers(2, vocab - 1,
+                                                 int(rng.integers(3, 14)))])
+            for _ in range(n)]
+
+
+def _state_tensors(st, sink):
+    """Every tensor of a ServeState (the pools without the sink page)."""
+    import dataclasses
+    out = {}
+    for f in dataclasses.fields(st):
+        v = getattr(st, f.name)
+        if v is None:
+            continue
+        if isinstance(v, torch.Tensor):
+            out[f.name] = v[:, :, :sink] if f.name.startswith("pool") else v
+        else:
+            out.update({f"{f.name}.{g.name}": getattr(v, g.name)
+                        for g in dataclasses.fields(v)
+                        if getattr(v, g.name) is not None})
+    return out
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(tinylfu=True, num_sets=4,
+                                             ways=2, decode_block=3)],
+                         ids=["lru", "tinylfu-burst"])
+def test_tick_replay_matches_the_eager_body(cuda, kw):
+    """Each replayed tick leaves the state bit for bit where the same body
+    run eagerly on the card leaves a copy of it (the sink page aside), and
+    emits the same vector; the sink is never named by a page table."""
+    import copy
+    from repro_torch.serve import engine as teng
+    cfg, model = _tick_model(cuda)
+    eng = teng.Engine(cfg, model, teng.EngineConfig(**dict(TICK_BASE, **kw)),
+                      device=cuda)
+    assert set(eng._graphs) == set(teng.KINDS)
+    sink = eng._state.pool_k.shape[2] - 1
+    for p in _tick_prompts(cfg.vocab_size, 9):
+        eng.submit(p, max_new=5)
+    kinds = []
+    steps = 0
+    while (eng.waiting or eng.running) and steps < 100:
+        admit = bool(eng.waiting) and len(eng.running) < eng.ecfg.max_batch
+        eager = copy.deepcopy(eng._state)
+        eng.step()
+        want = teng._tick(cfg, eng.ecfg, eng.backend, eng.sketch_cfg, model,
+                          eager, eng._batch.clone(), admit)
+        torch.cuda.synchronize()
+        got = _state_tensors(eng._state, sink)
+        for name, t in _state_tensors(eager, sink).items():
+            assert torch.equal(got[name], t), name
+        assert torch.equal(eng._emitted, want.cpu())
+        assert int(eng._state.page_tbl.max()) < sink
+        kinds.append(admit)
+        steps += 1
+    assert not eng.waiting and not eng.running
+    assert True in kinds and False in kinds
+
+
+def test_tick_replays_do_not_sync(cuda, monkeypatch):
+    """A whole run under ``set_sync_debug_mode("error")`` but for the one
+    fetch per tick: no replay, and nothing else of the shell, syncs."""
+    from repro_torch.serve import engine as teng
+    cfg, model = _tick_model(cuda)
+    eng = teng.Engine(cfg, model, teng.EngineConfig(**TICK_BASE),
+                      device=cuda)
+    for p in _tick_prompts(cfg.vocab_size, 6, seed=1):
+        eng.submit(p, max_new=4)
+    real = teng.Engine._fetch
+
+    def fetch(self):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real(self)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(teng.Engine, "_fetch", fetch)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fin = eng.run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(fin) == 6 and eng.ticks["admit"] >= 1 \
+        and eng.ticks["decode"] >= 1
+
+
+def test_tick_captures_once_per_kind_and_matches_the_host_loop(cuda):
+    """One capture per graph kind over a whole run, every tick a replay;
+    each graph holds the kernel launches of its phases; the run's stats,
+    hit ratio and token counts equal the host loop's."""
+    from repro_torch.serve import engine as teng
+    cfg, model = _tick_model(cuda)
+    prompts = _tick_prompts(cfg.vocab_size, 3 * TICK_BASE["max_batch"] + 1,
+                            seed=2)
+    teng.reset_capture_counts()
+    runs = {}
+    for jitted in (True, False):
+        eng = teng.Engine(cfg, model, teng.EngineConfig(
+            **dict(TICK_BASE, jitted=jitted)), device=cuda)
+        for p in prompts:
+            eng.submit(p, max_new=6)
+        fin = eng.run()
+        runs[jitted] = (eng.stats, eng.hit_ratio(),
+                        {rid: len(r.generated) for rid, r in fin.items()})
+        if jitted:
+            steps = sum(eng.ticks.values())
+            graphs = eng.graph_launches
+    counts = teng.capture_counts()
+    # each graph holds one fused probe per lane (admit only) and one kernel
+    # 5 launch per layer of each decode step
+    assert graphs == {"admit": {"kway_fused_probe": TICK_BASE["max_batch"],
+                                "paged_attention": cfg.num_layers},
+                      "decode": {"paged_attention": cfg.num_layers}}, graphs
+    assert sorted(k[-1] for k in counts) == sorted(teng.KINDS)
+    assert all(v == 1 for v in counts.values()), counts
+    assert steps > 2
+    assert runs[True] == runs[False]

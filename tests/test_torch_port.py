@@ -8,9 +8,10 @@
   * neither ``src/repro_torch`` nor ``chip_smoke.py`` imports JAX or any
     module of ``repro`` (checked in a subprocess and in the sources);
   * ``chip_smoke.py`` fails, and prints no result, without a card;
-  * the serving engine keeps the reference's refusals and refuses what is
-    not ported yet (the jitted tick, temperature sampling, shards, MoE and
-    SSM layers) with the ROADMAP item.
+  * the serving engine keeps the reference's refusals (the jitted tick
+    needs a traceable backend and an unsharded cache) and refuses what is
+    not ported yet (temperature sampling, shards, MoE and SSM layers) with
+    the ROADMAP item.
 """
 import ast
 import os
@@ -227,7 +228,8 @@ def _serve_cfg(arch="deepseek-7b"):
 
 
 @pytest.mark.parametrize("ecfg_kw,match", [
-    (dict(jitted=True), "Queue A item 12"),
+    (dict(jitted=True, backend="ref"), "traceable"),
+    (dict(jitted=True, shards=2), "unsharded"),
     (dict(temperature=0.7), "Queue A item 12"),
     (dict(shards=2), "Queue A item 8"),
     (dict(max_seq=100, page=16), "multiple of page"),
@@ -265,8 +267,8 @@ def test_engine_and_cli_run_on_the_card_by_default(no_card):
         lm.init_params(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--requests", "1", "--max-new", "1"])
-    with pytest.raises(ValueError, match="Queue A item 12"):
-        serve.main(["--jitted", "--device", "cpu"])
+    assert serve.main(["--jitted", "--requests", "2", "--max-new", "2",
+                       "--device", "cpu"]) == 0
     eng = Engine(cfg, model, EngineConfig(max_seq=64), device="cpu")
     assert eng.pool_k.device.type == "cpu"
     assert serve.main(["--requests", "2", "--max-new", "2",
