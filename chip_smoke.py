@@ -23,10 +23,11 @@ serving slice:
      check: 2^20 requests of which every other one is the same key, held
      exactly to the twin;
   4. holds kernel 3's TinyLFU branch to the chunked torch twin (record ->
-     peek -> admit -> access) at full size, LRU and LFU and a run whose
-     sample ages the sketch 4 times: per-chunk counts, final state and
-     final sketch, exactly; the ``cuda`` chunked path (kernel 1 peeks,
-     kernel 2 probes) equals both on the LRU run;
+     peek -> admit -> access) at full size, LRU over the whole trace, LFU
+     and a run whose sample ages the sketch twice over its first 2^21
+     requests: per-chunk counts, final state and final sketch, exactly;
+     the ``cuda`` chunked path (kernel 1 peeks, kernel 2 probes) equals
+     both on the LRU run;
   5. holds kernel 4 (``replay_hierarchical``) to its plain version
      (``hierarchy.replay_l1_over_l2``, run on CPU tensors) over the first
      2^14 requests against the full-size L2 filled by a 2^20-request flat
@@ -92,6 +93,45 @@ serving slice:
      timed.  Each kernel prints its previous design's figures on a line of
      its own, as constants (not in the JSON summary).
 
+Between 9 and 10, set sharding and the robustness layer, each path counted
+(every launch counter set to 0 just before it, read just after):
+
+ 11. sharded replay (``core/sharded.py``) on the main path's state and
+     trace: LRU resident at D = 1, 2, 4, 8 (D kernel-3 launches each; hits
+     and the global view's keys and vals equal to the unsharded kernel-3
+     run) and ``replay_batched(shards=4)``; HYPERBOLIC and per-shard
+     TinyLFU at D = 4 against the sharded torch twin on the card (every
+     lane and sketch word, 2^18 requests); TTL at D = 2 equal to the
+     unsharded TTL replay; overflow-defer at D = 8 (256 lanes a bucket)
+     against the twin; the chunked sharded path at D = 4 (kernel 2 per
+     shard per chunk, 2^20 requests) equal to the resident one; the
+     sharded hierarchy (a private L1 of 512 x 16 per shard) at D = 2
+     against kernel 4's plain version; then each D timed (ms per replay,
+     requests/s, kernel 3's device ms per shard launch, the routing's ms);
+ 12. sharded serving: ``EngineConfig(shards=D)``, D = 2 and 4, the host
+     loop at deepseek-7b's width, equal to ``shards=1`` in tokens, stats,
+     hit ratio and evictions; tokens/s of D = 1, 2, 4 in turns;
+ 13. the robustness layer: ``check_cache`` clean on the main path's final
+     state; ``flip_bit`` at each site, ``stale_entry``, ``clock_skew`` and
+     ``double_resident`` detected at their set / way, ``scrub`` on the card
+     equal to ``scrub`` on the CPU; ``check_cache`` and ``scrub`` timed
+     beside their bytes bound; ``validated_replay`` (cuda, every 64
+     chunks) equal to the main path's hits; ``resilient_replay`` on its top
+     rung (``cuda-resident``, with the hierarchy ``cuda-resident-l1l2``)
+     with no event;
+ 14. the robust tick: ``check_serve`` clean mid-run and drained at full
+     width, ``inject_nan`` named ``nan_in_kv``, ``double_book_page``
+     ``double_booked``; a crash mid-tick at full width and 4 layers
+     (``CheckpointedEngine`` every 4 ticks, the next save never
+     committed) restored into a fresh engine's captured graphs, its run
+     equal to an uninterrupted one; the checkpoint's bytes and its save
+     and restore seconds.
+
+The figures of 13 and 14 (validation, scrub, checkpoint) are not kernel
+work: they are printed on lines of their own and stay out of the JSON
+summary, as does the checkpoint's size at full depth, which is computed
+from the config and not measured.
+
 Any mismatch or failure exits non-zero; no phase's failure is caught.  The
 last two lines are the per-kernel JSON summary (6 entries) and the device
 JSON of the one card the script drives.  Needs one CUDA card; without one
@@ -129,6 +169,10 @@ TTL_SETS, TTL_N, TTL_BATCH = 8192, 2**18, 1024
 #: full-size cache never ages on this trace, so one more run ages 4 times
 TL_POLICIES = ("LRU", "LFU")
 TL_AGING = dict(width=2**20, door_bits=2**21, sample=2**20)
+#: the TinyLFU runs after the first (LFU, aging) hold kernel 3 to the twin
+#: on the first TL_CUT_N requests: the chunked twin is host-bound (about
+#: 57 s a 2^22-request run on an H100 host); the aging run still ages twice
+TL_CUT_N = 2**21
 #: hierarchy: the largest power-of-two L1 of 16 ways that fits one SM's
 #: shared memory with its expiry lane, over the full-size L2
 HIER_L1_SETS, HIER_L1_WAYS = 512, 16
@@ -751,16 +795,16 @@ def tl_runs():
 
 def phase_tinylfu_kernel(card, trace, dev, results):
     """Kernel 3's TinyLFU branch == the chunked torch twin, exactly, at full
-    size; the cuda chunked path (kernel 1 peeks, kernel 2 probes) equals
-    both on the first run."""
+    size (the runs after the first on TL_CUT_N requests); the cuda chunked
+    path (kernel 1 peeks, kernel 2 probes) equals both on the first run."""
     from repro_torch.core import router
     from repro_torch.core.backend import make_backend
     from repro_torch.core.kway import KWayConfig
 
-    chunks, en = router.pad_chunks(trace, BATCH)
-    n = len(trace)
     err = 0
     for k, (policy, tl, label) in enumerate(tl_runs()):
+        n = len(trace) if k == 0 else TL_CUT_N
+        chunks, en = router.pad_chunks(trace[:n], BATCH)
         cfg = KWayConfig(num_sets=NUM_SETS, ways=WAYS, policy=policy)
         cb = make_backend("cuda", cfg, dev)
         tb = make_backend("torch", cfg, dev)
@@ -2019,7 +2063,6 @@ def phase_serve_tick(card, dev, results, serve):
         serve_tick_runs=runs, serve_tick_busy_share=busy,
         serve_tick_busy_share_of_profiled_wall=busy_profiled,
         serve_tick_capture_s=build_s, serve_tick_peak_bytes=peak)
-    del serve["model"]
     free()
 
 
@@ -2123,15 +2166,43 @@ def host_ms(fn, reps: int) -> float:
     return ms
 
 
+def graph_device_ms(fn, reps: int, rounds: int = 5) -> float:
+    """Device milliseconds per call of ``fn`` by CUDA events around
+    replays of one CUDA graph that holds ``reps`` calls: no host launch
+    time, only the graph's own gaps between kernels, so never below the
+    kernels' device time.  (torch.profiler's rows can come back short on a
+    long run, which put a device time under its bytes bound.)"""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (rounds * reps)
+    del graph
+    return ms
+
+
 def time_paged_attention(runs):
     """Kernel 5's wrapper calls ``runs`` (one per layer) in turn, as a
     decode step runs them: (ms per call by CUDA events over 10 rounds, host
-    ms per call over 10 rounds, device ms by torch.profiler over 3)."""
+    ms per call over 10 rounds, device ms by CUDA events over replays of a
+    graph of 3 rounds)."""
     n = len(runs)
     return (cuda_ms(round_robin(runs), 10 * n),
             host_ms(round_robin(runs), 10 * n),
-            profiled_device_ms(round_robin(runs), 3 * n,
-                               ("paged_attention_kernel",)))
+            graph_device_ms(round_robin(runs), 3 * n))
 
 
 def phase_paged_attention_timing(card, dev, results, serve):
@@ -2139,7 +2210,8 @@ def phase_paged_attention_timing(card, dev, results, serve):
     step, as a step runs them, so that no call finds its K/V in the 50 MB
     L2 cache from the call before (one layer's K/V is 63.8 MB): CUDA events
     around wrapper calls, the wrapper's host time per call, the kernel's
-    device time by torch.profiler, the plain version, and
+    device time by CUDA events over replays of a CUDA graph of the
+    calls, the plain version, and
     scaled_dot_product_attention on each layer's K/V gathered beforehand
     into a contiguous [B, H, T, D] (a yardstick: it excludes the gather,
     and the port never calls it).  Then layer 0 alone, 200 times, as the
@@ -2184,14 +2256,14 @@ def phase_paged_attention_timing(card, dev, results, serve):
     lib = cuda_ms(round_robin(sdpas), 10 * n)
     plain = cuda_ms(round_robin(plains), n)
     ms0 = cuda_ms(runs[0], 200)
-    dev0 = profiled_device_ms(runs[0], 50, ("paged_attention_kernel",))
+    dev0 = graph_device_ms(runs[0], 50)
     lib0 = cuda_ms(sdpas[0], 200)
     del sdpas
     torch.cuda.empty_cache()
     r = results["paged_attention"]
     r.update(ms=ms, device_ms=dev_ms, host_ms=host, plain_ms=plain,
              bound_ms=bound, bound_by=by, library_ms=lib,
-             bound_share=None if dev_ms is None else bound / dev_ms,
+             bound_share=bound / dev_ms,
              layer0_ms=ms0, layer0_device_ms=dev0, layer0_library_ms=lib0,
              split=list(kpa.split_plan(
                  page, d, q.element_size(), pt.shape[1], b, kvh,
@@ -2203,7 +2275,8 @@ def phase_paged_attention_timing(card, dev, results, serve):
               f" {r['split']}): {ms:.4f} ms per wrapper call (CUDA events, "
               f"{10 * n} calls), host {host:.4f} ms per call "
               f"(perf_counter, no sync), kernel device time "
-              f"{fmt_ms(dev_ms)} (torch.profiler, {3 * n} calls), bound "
+              f"{fmt_ms(dev_ms)} (CUDA events over replays of a CUDA graph "
+              f"of {3 * n} calls), bound "
               f"{bound:.6f} ms by {by} ({nbytes} B; bound share "
               f"{fmt_share(r['bound_share'])}), plain {plain:.4f} ms; "
               f"library_ms {lib:.4f} (scaled_dot_product_attention on K/V "
@@ -2211,15 +2284,593 @@ def phase_paged_attention_timing(card, dev, results, serve):
               f"max abs diff to the kernel {lib_err:.3g})")
     say(card, f"paged_attention layer 0 alone (the previous design's method):"
               f" {ms0:.4f} ms per wrapper call (CUDA events, 200 calls), "
-              f"device time {fmt_ms(dev0)} (torch.profiler, 50 calls), "
+              f"device time {fmt_ms(dev0)} (CUDA events over replays of a "
+              f"CUDA graph of 50 calls), "
               f"library_ms {lib0:.4f}")
     say_previous(card, "paged_attention")
+    if dev_ms < bound:
+        raise AssertionError(f"paged_attention device time {dev_ms} ms is "
+                             f"under its bytes bound {bound} ms: the "
+                             f"measurement or the bound is wrong")
     host_launches = n * serve["stats"]["decode_steps"]
     say(card, f"serving (host loop): {r['serve_tokens_per_s']:.1f} tokens/s,"
               f" {serve['stats']['decode_steps']} decode steps x {n} layers "
               f"= {host_launches} kernel-5 launches; kernel 5 at {ms:.4f} ms "
               f"would be {ms * host_launches / 1e3:.3f} s of the "
               f"{r['serve_s']:.3f} s run")
+
+
+# ---------------------------------------------------------------------------
+# set sharding and the robustness layer
+# ---------------------------------------------------------------------------
+
+#: shard counts of the sharded resident replay on the main path's trace
+SHARD_COUNTS = (1, 2, 4, 8)
+#: requests of the checks against the sharded torch twin on the card
+SHARD_TWIN_N = 2**18
+#: requests of the chunked sharded path (kernel 2 per shard per chunk)
+SHARD_CHUNKED_N = 2**20
+#: overflow-defer: D = 8 shards, 256 and 128 lanes a bucket (a chunk of
+#: 1024 lanes; on this trace no bucket passes 256, and 128 defers)
+SHARD_DEFER = dict(shards=8, capacities=(256, 128))
+#: the sharded hierarchy (a private L1 of 512 x 16 per shard): D and the
+#: requests kernel 4's plain version walks
+SHARD_HIER = dict(shards=2, n=2**14)
+#: the validator's cadence in validated_replay (chunks)
+VALIDATE_INTERVAL = 64
+#: the checkpoint phase: deepseek-7b at full width cut to CKPT_LAYERS
+#: layers (a 30-layer checkpoint of the tick holds 8.06 GB of pools), a
+#: commit every CKPT_EVERY ticks, the crash one tick after it
+CKPT_LAYERS, CKPT_EVERY = 4, 4
+#: where the checkpoint phase writes (inside the checkout, removed after)
+CKPT_DIR = os.path.join(HERE, ".chip_smoke_ckpt")
+
+
+def stacked_err(a, b) -> int:
+    """Largest |a - b| over every tensor field of two states (any
+    dataclass of tensors, nested: a stacked KWayState, a HierState, a
+    sketch); fields must match in presence and shape."""
+    import dataclasses
+    err = 0
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if (x is None) != (y is None):
+            raise AssertionError(f"{f.name} present on one side only")
+        if x is None:
+            continue
+        if dataclasses.is_dataclass(x):
+            err = max(err, stacked_err(x, y))
+        else:
+            err = max(err, max_abs_err([(x.reshape(-1), y.reshape(-1))]))
+    return err
+
+
+def phase_sharded_replay(card, trace, ttl_trace, dev, results):
+    """Set sharding (``core/sharded.py``) on the main path's state and
+    trace, counted: LRU resident at D in SHARD_COUNTS (D kernel-3 launches
+    each; hits and the global view's keys and vals equal the unsharded
+    kernel-3 run), ``replay_batched(shards=4, resident=True)``; HYPERBOLIC
+    and per-shard TinyLFU at D = 4 against the sharded torch twin on the
+    card (every lane, and every shard's sketch word); TTL at D = 2 equal to
+    the unsharded TTL replay; overflow-defer at D = 8 against the twin; the
+    chunked sharded path (kernel 2 per shard per chunk) equal to the
+    resident one; the sharded hierarchy (kernel 4 per shard) against
+    kernel 4's plain version.  Then each D timed."""
+    from repro_torch.core import admission, hashing, router, simulate
+    from repro_torch.core.backend import make_backend
+    from repro_torch.core.hierarchy import HierarchyConfig
+    from repro_torch.core.kway import KWayConfig
+    from repro_torch.core.policies import Policy
+    from repro_torch.core.sharded import (ShardedCache, ShardedConfig,
+                                          shard_of)
+    from repro_torch.kernels import replay as krp
+
+    def cache(cfg, d, backend="cuda", device=dev, **kw):
+        return ShardedCache(ShardedConfig(cache=cfg, num_shards=d,
+                                          backend=backend, **kw),
+                            device=device)
+
+    cfg = KWayConfig(num_sets=NUM_SETS, ways=WAYS, policy=Policy.LRU)
+    be = make_backend("cuda", cfg, dev)
+    chunks, en = router.pad_chunks(trace, BATCH)
+    h0, _, s0, _ = be.replay(be.init(), chunks, en)
+    hits0 = int(h0.sum())
+
+    reset_launch_counts()
+    for d in SHARD_COUNTS:
+        before = krp.launches("flat")
+        hits, defers, st = cache(cfg, d).replay(trace, BATCH, resident=True)
+        n = krp.launches("flat") - before
+        gv = cache(cfg, d).global_view(st)
+        if n != d or (hits, defers) != (hits0, 0) or not (
+                torch.equal(gv.keys, s0.keys)
+                and torch.equal(gv.vals, s0.vals)):
+            raise AssertionError(f"sharded LRU D={d}: {n} kernel-3 launches,"
+                                 f" hits {hits} deferred {defers}, unsharded"
+                                 f" hits {hits0}, or global view keys/vals "
+                                 f"differ")
+        say(card, f"sharded resident LRU D={d}: {n} kernel-3 launches, hits "
+                  f"{hits} == unsharded kernel 3, global view keys and vals "
+                  f"== unsharded, clocks {st.clock.tolist()}")
+    hr = simulate.replay_batched(
+        simulate.SimConfig(cfg, backend="cuda", device=dev), trace,
+        batch=BATCH, shards=4, resident=True)
+    if hr != hits0 / len(trace):
+        raise AssertionError(f"replay_batched(shards=4) hit ratio {hr!r}")
+    say(card, f"simulate.replay_batched(shards=4, resident=True): hit ratio "
+              f"{hr!r} == unsharded")
+
+    tr = trace[:SHARD_TWIN_N]
+    err = 0
+    for policy, tl in ((Policy.HYPERBOLIC, None),
+                       (Policy.LRU, admission.for_capacity(NUM_SETS * WAYS))):
+        c = KWayConfig(num_sets=NUM_SETS, ways=WAYS, policy=policy)
+        kern, twin = cache(c, 4), cache(c, 4, "torch")
+        got = kern.replay(tr, BATCH, resident=True, tinylfu=tl)
+        want = twin.replay(tr, BATCH, resident=True, tinylfu=tl)
+        e = stacked_err(got[2], want[2])
+        if got[:2] != want[:2] or e:
+            raise AssertionError(f"sharded {policy.name} tinylfu="
+                                 f"{tl is not None} D=4: {got[:2]} vs twin "
+                                 f"{want[:2]}, state err {e}")
+        if tl is not None:
+            # every shard's sketch: the same per-shard calls as the replay
+            tch, ten = router.pad_chunks(tr, BATCH)
+            kc, ec, _, _ = kern.bucket_all(hashing.key_tensor(tch, dev),
+                                           torch.from_numpy(ten).to(dev),
+                                           BATCH)
+            st_k, st_t = kern.init(), twin.init()
+            for i in range(4):
+                _, _, _, sk = kern.backend.replay(
+                    shard_of(st_k, i), kc[i], ec[i], tinylfu=tl)
+                _, _, _, sk2 = twin.backend.replay(
+                    shard_of(st_t, i), kc[i], ec[i], tinylfu=tl)
+                e = max(e, stacked_err(sk, sk2))
+            if e:
+                raise AssertionError(f"sharded TinyLFU D=4: a shard's sketch "
+                                     f"differs from the twin's (err {e})")
+        err = max(err, e)
+        say(card, f"sharded resident {policy.name}"
+                  f"{' + TinyLFU (per-shard sketches)' if tl else ''} D=4, "
+                  f"{len(tr)} requests: hits {got[0]} == sharded torch twin "
+                  f"on the card, every lane{' and sketch word' if tl else ''}")
+
+    keys, ttls = ttl_trace
+    tcfg = KWayConfig(num_sets=TTL_SETS, ways=WAYS, policy=Policy.LRU)
+    tbe = make_backend("cuda", tcfg, dev)
+    tch, ten = router.pad_chunks(keys, TTL_BATCH)
+    th0, _, ts0, _ = tbe.replay(tbe.init(ttl=True), tch, ten,
+                                ttls=simulate._pad_ttl_chunks(ttls,
+                                                              TTL_BATCH))
+    sc2 = cache(tcfg, 2)
+    hits, defers, st = sc2.replay(keys, TTL_BATCH, resident=True, ttls=ttls)
+    gv = sc2.global_view(st)
+    if (hits, defers) != (int(th0.sum()), 0) or not (
+            torch.equal(gv.keys, ts0.keys) and torch.equal(gv.vals, ts0.vals)
+            and torch.equal(gv.expiry, ts0.expiry)):
+        raise AssertionError(f"sharded TTL D=2: hits {hits} vs unsharded "
+                             f"{int(th0.sum())}, or the global view differs")
+    say(card, f"sharded resident TTL D=2 (ttl_churn {len(keys)}, S="
+              f"{TTL_SETS}): hits {hits} == unsharded, global view keys, "
+              f"vals and deadlines == unsharded")
+
+    d = SHARD_DEFER["shards"]
+    deferred = {}
+    for cap in SHARD_DEFER["capacities"]:
+        got = cache(cfg, d, route_capacity=cap).replay(tr, BATCH,
+                                                       resident=True)
+        want = cache(cfg, d, "torch", route_capacity=cap).replay(
+            tr, BATCH, resident=True)
+        e = stacked_err(got[2], want[2])
+        if got[:2] != want[:2] or e:
+            raise AssertionError(f"overflow-defer D={d} capacity {cap}: "
+                                 f"{got[:2]} vs twin {want[:2]} (err {e})")
+        deferred[cap] = got[1]
+        say(card, f"sharded overflow-defer D={d}, route_capacity={cap}, "
+                  f"{len(tr)} requests: deferred {got[1]}, hits {got[0]} == "
+                  f"twin, every lane")
+    if not any(deferred.values()):
+        raise AssertionError(f"overflow-defer deferred nothing: {deferred}")
+
+    trc = trace[:SHARD_CHUNKED_N]
+    sc4 = cache(cfg, 4)
+    t0 = time.perf_counter()
+    chk = sc4.replay(trc, BATCH)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    res = sc4.replay(trc, BATCH, resident=True)
+    e = stacked_err(chk[2], res[2])
+    if chk[:2] != res[:2] or e:
+        raise AssertionError(f"sharded chunked D=4 {chk[:2]} != resident "
+                             f"{res[:2]} (err {e})")
+    say(card, f"sharded chunked path D=4 (kernel 2 per shard per chunk), "
+              f"{len(trc)} requests: hits {chk[0]} == resident, every lane "
+              f"({wall:.2f} s host wall: {len(trc) / wall:.0f} requests/s)")
+
+    hd, hn = SHARD_HIER["shards"], SHARD_HIER["n"]
+    hc = HierarchyConfig(l1_sets=HIER_L1_SETS, l1_ways=HIER_L1_WAYS)
+    before = krp.launches("hier")
+    got = cache(cfg, hd).replay(trace[:hn], BATCH, resident=True,
+                                hierarchy=hc)
+    n = krp.launches("hier") - before
+    want = cache(cfg, hd, "torch", torch.device("cpu")).replay(
+        trace[:hn], BATCH, resident=True, hierarchy=hc)
+    e = stacked_err(got[2], want[2])
+    if n != hd or got[:2] != want[:2] or e:
+        raise AssertionError(f"sharded hierarchy D={hd}: {n} launches, "
+                             f"{got[:2]} vs plain {want[:2]} (err {e})")
+    say(card, f"sharded hierarchy D={hd} (L1 {HIER_L1_SETS}x{HIER_L1_WAYS} "
+              f"per shard over L2 {NUM_SETS // hd}x{WAYS} each), {hn} "
+              f"requests: {n} kernel-4 launches, hits {got[0]} == kernel 4's "
+              f"plain version (CPU tensors), both tiers of every shard")
+    check_launches(card, "sharded replay", (
+        "kway_fused_probe", "replay_resident", "replay_resident_tinylfu",
+        "replay_hierarchical"), results)
+
+    # timing from the host trace, in turns (0, 1, 2, 4, 8, 8, 4, 2, 1, 0):
+    # unsharded (D = 0 below: ``replay_batched(resident=True)``) and
+    # ``ShardedCache.replay(resident=True)`` at each D (what
+    # ``replay_batched(shards=D)`` runs); kernel 3's device time per shard
+    # launch from torch.profiler; the routing alone on device tensors
+    qk = hashing.key_tensor(chunks, dev)
+    ent = torch.from_numpy(en).to(dev)
+    sim = simulate.SimConfig(cfg, backend="cuda", device=dev)
+    order = (0,) + SHARD_COUNTS
+    wall = {d: [] for d in order}
+    for d in order + order[::-1]:
+        run = ((lambda: simulate.replay_batched(sim, trace, batch=BATCH,
+                                                resident=True)) if d == 0
+               else (lambda: cache(cfg, d).replay(trace, BATCH,
+                                                  resident=True)))
+        wall[d].append(timed(run)[1])
+    timing = {}
+    for d in order:
+        ms = statistics.median(wall[d])
+        if d == 0:
+            say(card, f"unsharded resident LRU (replay_batched): "
+                      f"{wall[0]} ms per replay (CUDA events, in turns with "
+                      f"the sharded runs), median {ms:.3f} ms = "
+                      f"{len(trace) / ms * 1e3:.4g} requests/s")
+            timing["unsharded"] = dict(ms=ms,
+                                       requests_per_s=len(trace) / ms * 1e3)
+            continue
+        sc = cache(cfg, d)
+        dev_ms = profiled_device_ms(
+            lambda: sc.replay(trace, BATCH, resident=True), 1,
+            KERNEL3_NAMES, warmup=False)
+        route_ms = cuda_ms(lambda: sc.bucket_all(qk, ent, BATCH), 5)
+        timing[d] = dict(ms=ms, requests_per_s=len(trace) / ms * 1e3,
+                         kernel3_device_ms_per_launch=dev_ms and dev_ms / d,
+                         routing_ms=route_ms, launches=d)
+        say(card, f"sharded resident LRU D={d} (ShardedCache.replay): "
+                  f"{wall[d]} ms per replay (CUDA events, host padding, "
+                  f"copies and routing included), median {ms:.3f} ms = "
+                  f"{len(trace) / ms * 1e3:.4g} requests/s; kernel 3 "
+                  f"{fmt_ms(dev_ms and dev_ms / d)} device per shard launch "
+                  f"(torch.profiler, {d} launches); routing (bucket_all, "
+                  f"device tensors) {route_ms:.3f} ms")
+    results["replay_resident"].update(
+        sharded_timing=timing, max_abs_err_sharded=err)
+
+
+def phase_sharded_serve(card, dev, results, serve):
+    """The serving host loop with a sharded prefix cache
+    (``EngineConfig(shards=D)``, cuda backend) at full width, counted:
+    tokens, stats, hit ratio and evictions equal to ``phase_serve_path``'s
+    ``shards=1`` run at D = 2 and 4; then tokens/s of D = 1, 2, 4 in turns
+    (1 / 2 / 4 / 4 / 2 / 1)."""
+    cfg = serve_config()
+    model, prompts = serve["model"], serve["prompts"]
+    hst, hreqs, _, hhr = serve["host"]
+    reset_launch_counts()
+    for shards in (2, 4):
+        st, reqs, wall, hr = drive_engine(cfg, model, "cuda", prompts, dev,
+                                          shards=shards)
+        if (st, reqs, hr) != (hst, hreqs, hhr):
+            bad = [rid for rid in reqs if reqs[rid] != hreqs.get(rid)]
+            raise AssertionError(f"shards={shards}: stats {st}, hit ratio "
+                                 f"{hr!r} vs shards=1 {hst}, {hhr!r}; "
+                                 f"requests differing {bad}")
+        n_tok = sum(len(t) for t, _, _ in reqs.values())
+        say(card, f"sharded serving shards={shards}: tokens, pages, prefix "
+                  f"hits of all {len(reqs)} requests, stats {st} and hit "
+                  f"ratio {hr!r} == shards=1 ({n_tok} tokens in {wall:.3f} "
+                  f"s)")
+    counts = launch_counts()
+    say(card, f"sharded serving launches (kernels 2, 1, 5): "
+              f"{counts['kway_fused_probe']}, {counts['kway_probe']}, "
+              f"{counts['paged_attention']}")
+    check_launches(card, "sharded serving", ("kway_probe",
+                                             "paged_attention"), results)
+    rates = {1: [], 2: [], 4: []}
+    for shards in (1, 2, 4, 4, 2, 1):
+        st, reqs, wall, _ = drive_engine(cfg, model, "cuda", prompts, dev,
+                                         shards=shards)
+        n_tok = sum(len(t) for t, _, _ in reqs.values())
+        rates[shards].append(n_tok / wall)
+        say(card, f"sharded serving timing shards={shards}: {n_tok} tokens "
+                  f"in {wall:.4f} s = {n_tok / wall:.2f} tokens/s")
+    results["paged_attention"].update(serve_sharded_tokens_per_s=rates)
+
+
+def phase_robust(card, trace, ttl_trace, dev, results):
+    """The robustness layer on the main path's state, counted:
+    ``check_cache`` clean on the final 2^20-entry state; every fault site
+    detected at its named set / way, ``scrub`` on the card equal to
+    ``scrub`` of the same state on the CPU; ``check_cache`` and ``scrub``
+    timed beside their bytes bound; ``validated_replay`` (cuda, interval
+    VALIDATE_INTERVAL) on the whole trace equal to the main path's hits;
+    ``resilient_replay`` on its top rung with no event, flat and with the
+    hierarchy."""
+    from repro_torch.core import hashing, router, simulate
+    from repro_torch.core.backend import make_backend
+    from repro_torch.core.hierarchy import HierarchyConfig, make_hier
+    from repro_torch.core.kway import KWayConfig
+    from repro_torch.core.policies import Policy
+    from repro_torch.kernels import ops
+    from repro_torch.robust import (check_cache, check_hier, events,
+                                    explain_cache, explain_hier, faults,
+                                    resilient_replay, scrub, scrub_hier,
+                                    validated_replay)
+
+    cfg = KWayConfig(num_sets=NUM_SETS, ways=WAYS, policy=Policy.LRU)
+    be = make_backend("cuda", cfg, dev)
+    chunks, en = router.pad_chunks(trace, BATCH)
+    h0, _, s0, _ = be.replay(be.init(), chunks, en)
+    hits0 = int(h0.sum())
+    reset_launch_counts()
+    rep = check_cache(cfg, s0, vals_mode="key")
+    if not rep.clean():
+        raise AssertionError(f"main path state not clean: "
+                             f"{explain_cache(rep, limit=8)}")
+
+    def repair_matches_cpu(c, st, label, hier=None):
+        """scrub (scrub_hier) on the card == on the CPU, bit for bit."""
+        if hier is None:
+            a = scrub(c, st, vals_mode="key")
+            b = scrub(c, to_cpu(st), vals_mode="key")
+        else:
+            a = scrub_hier(c, hier, st, vals_mode="key")
+            b = scrub_hier(c, hier, to_cpu(st), vals_mode="key")
+            a, b = (a[0], a[1], torch.cat([x.reshape(-1) for x in a[2]])), \
+                (b[0], b[1], torch.cat([x.reshape(-1) for x in b[2]]))
+        e = stacked_err(a[0], b[0]) + max_abs_err([(a[1].reshape(1),
+                                                    b[1].reshape(1)),
+                                                   (a[2], b[2])])
+        if e or int(a[1]) <= 0:
+            raise AssertionError(f"{label}: scrub on the card != on the CPU "
+                                 f"(err {e}) or nothing scrubbed")
+        return int(a[1])
+
+    def named(rep, s, w, what):
+        """``what`` among the names of lane (s, w)'s violation bits."""
+        from repro_torch.robust import invariants
+        bits = int(rep.lane_bits[s, w])
+        names = [n for i, n in invariants.CACHE_CHECKS.items()
+                 if bits >> i & 1]
+        if what not in names:
+            raise AssertionError(f"{what} not named at set {s} way {w}: "
+                                 f"{names}; {explain_cache(rep)[:6]}")
+
+    for i, site in enumerate(faults.LANE_SITES):
+        st2, fr = faults.flip_bit(s0, site, seed=2026, step=i)
+        lines = explain_cache(check_cache(cfg, st2, vals_mode="key"))
+        s, w = fr.index
+        if not any(f"set {s} way {w}:" in ln for ln in lines):
+            raise AssertionError(f"flip_bit {site} at ({s}, {w}) not named: "
+                                 f"{lines[:6]}")
+        forced = repair_matches_cpu(cfg, st2, f"flip_bit {site}")
+        say(card, f"flip_bit {site} bit {fr.bit} at set {s} way {w}: "
+                  f"detected and named ({lines[0]}); scrub on the card == "
+                  f"CPU, {forced} forced evictions")
+    keys, ttls = ttl_trace
+    tcfg = KWayConfig(num_sets=TTL_SETS, ways=WAYS, policy=Policy.LRU)
+    tbe = make_backend("cuda", tcfg, dev)
+    tch, ten = router.pad_chunks(keys, TTL_BATCH)
+    _, _, ts, _ = tbe.replay(tbe.init(ttl=True), tch, ten,
+                             ttls=simulate._pad_ttl_chunks(ttls, TTL_BATCH))
+    for kind, bit in (("stale_entry", "expired_hit"),
+                      ("clock_skew", "expired_resident")):
+        st2, fr = getattr(faults, kind)(ts, seed=2026)
+        named(check_cache(tcfg, st2, vals_mode="key"), *fr.index, bit)
+        forced = repair_matches_cpu(tcfg, st2, kind)
+        say(card, f"{kind} at set {fr.index[0]} way {fr.index[1]}: {bit} "
+                  f"named; scrub on the card == CPU, {forced} forced "
+                  f"evictions")
+    hc = HierarchyConfig(l1_sets=HIER_L1_SETS, l1_ways=HIER_L1_WAYS)
+    hch, hen = router.pad_chunks(trace[:HIER_CHECK_N], BATCH)
+    _, _, hst, _ = ops.replay_hierarchical(cfg, hc, make_hier(
+        cfg, hc, device=dev), hch, hen)
+    if not check_hier(cfg, hc, hst, vals_mode="key").clean():
+        raise AssertionError("hierarchy state not clean")
+    st2, fr = faults.double_resident(cfg, hst, seed=2026)
+    dup = hashing.key_tensor(np.asarray([int(fr.after)], np.uint32), dev)
+    s1, w1 = (int(v) for v in torch.nonzero(st2.l1.keys == dup[0])[0])
+    lines = explain_hier(check_hier(cfg, hc, st2, vals_mode="key"))
+    if f"l1 set {s1} way {w1}: double_resident" not in lines:
+        raise AssertionError(f"double_resident not named at L1 set {s1} "
+                             f"way {w1}: {lines[:6]}")
+    forced = repair_matches_cpu(cfg, st2, "double_resident", hier=hc)
+    say(card, f"double_resident (L2 set {fr.index[0]} way {fr.index[1]}): "
+              f"named at L1 set {s1} way {w1}; scrub_hier on the card == "
+              f"CPU, {forced} forced evictions")
+
+    n_ent = NUM_SETS * WAYS
+    check_ms = cuda_ms(lambda: check_cache(cfg, s0, vals_mode="key"), 10)
+    scrub_ms = cuda_ms(lambda: scrub(cfg, s0, vals_mode="key"), 10)
+    b_check = (5 * 4 + 4) * n_ent
+    b_scrub = (5 * 4 + 5 * 4 + 4) * n_ent
+    say(card, f"check_cache at {n_ent} entries: {check_ms:.4f} ms per call "
+              f"(CUDA events), bound {b_check / HBM_BYTES_PER_S * 1e3:.6f} "
+              f"ms ({b_check} B: 5 lanes read, the bitmap written); scrub "
+              f"{scrub_ms:.4f} ms, bound "
+              f"{b_scrub / HBM_BYTES_PER_S * 1e3:.6f} ms ({b_scrub} B: 5 "
+              f"lanes read and written, the bitmap)")
+
+    t0 = time.perf_counter()
+    vh, _, vst, _, alarm = validated_replay(
+        cfg, chunks, en, backend="cuda", interval=VALIDATE_INTERVAL,
+        device=dev)
+    sync(dev)
+    vwall = time.perf_counter() - t0
+    if int(vh.sum()) != hits0 or int(alarm) != 0 or stacked_err(vst, s0):
+        raise AssertionError(f"validated_replay: hits {int(vh.sum())} vs "
+                             f"{hits0}, alarm {int(alarm)}")
+    say(card, f"validated_replay (cuda, interval {VALIDATE_INTERVAL}) on "
+              f"{len(trace)} requests: hits {hits0} == main path, final "
+              f"state == kernel 3's, alarm 0 ({vwall:.2f} s host wall)")
+
+    c0 = events.cursor()
+    out = resilient_replay(cfg, chunks, en, device=dev)
+    if out.rung != "cuda-resident" or events.count(start=c0) \
+            or int(out.hits.sum()) != hits0:
+        raise AssertionError(f"resilient_replay: rung {out.rung}, attempts "
+                             f"{out.attempts}, events "
+                             f"{events.since(c0)}")
+    outh = resilient_replay(cfg, chunks, en, device=dev, hierarchy=hc)
+    if outh.rung != "cuda-resident-l1l2" or events.count(start=c0):
+        raise AssertionError(f"resilient_replay (hierarchy): rung "
+                             f"{outh.rung}, attempts {outh.attempts}, events"
+                             f" {events.since(c0)}")
+    say(card, f"resilient_replay: {out.attempts} (hits {hits0}); with the "
+              f"hierarchy {outh.attempts} (hits {int(outh.hits.sum())}); no "
+              f"degradation event")
+    check_launches(card, "robust", ("kway_fused_probe", "replay_resident",
+                                    "replay_hierarchical"), results)
+
+
+def tick_launches(eng) -> Counter:
+    """Kernel launches of a tick engine's run so far: each graph's launches
+    at capture times its replays."""
+    return Counter({k: sum(eng.graph_launches[kind].get(k, 0) * n
+                           for kind, n in eng.ticks.items())
+                    for k in TICK_KERNELS})
+
+
+def phase_robust_serve(card, dev, results, serve):
+    """The robustness layer on the tick (``jitted=True``, cuda backend):
+    ``check_serve`` clean mid-run and drained at full width, ``inject_nan``
+    named ``nan_in_kv`` and ``double_book_page`` named ``double_booked``;
+    then, at full width and CKPT_LAYERS layers, a crash mid-tick: a
+    ``CheckpointedEngine`` commits every CKPT_EVERY ticks, the next tick's
+    save never commits, and a fresh engine (graphs captured) restored from
+    the commit runs to the end with every request's tokens and the stats
+    of an uninterrupted run."""
+    import dataclasses
+    import shutil
+    from repro_torch.ckpt import manager
+    from repro_torch.models import lm
+    from repro_torch.robust import (CheckpointedEngine, check_serve,
+                                    explain_serve, faults, restore_engine,
+                                    save_engine)
+
+    cfg = serve_config()
+    model, prompts = serve["model"], serve["prompts"]
+    e = SERVE_ENGINE
+    pages = e["num_sets"] * e["ways"] + e["private_pages"]
+    launches = Counter()
+    eng, _, _ = build_tick(cfg, model, dev)
+    for p in prompts:
+        eng.submit(p, max_new=SERVE_MAX_NEW)
+    for _ in range(3):
+        eng.step()
+    rep, ms = timed(lambda: check_serve(eng.ecfg, eng._state))
+    if not rep.clean():
+        raise AssertionError(f"check_serve mid-run: {explain_serve(rep)}")
+    st = eng._state
+    pk, fr = faults.inject_nan(st.pool_k, seed=2026, pages=pages)
+    lines = explain_serve(check_serve(eng.ecfg, dataclasses.replace(
+        st, pool_k=pk)))
+    del pk
+    if "serve: nan_in_kv" not in lines:
+        raise AssertionError(f"inject_nan at {fr.index} not named: {lines}")
+    st2, fr2 = faults.double_book_page(eng.ecfg, st, seed=2026)
+    lines2 = explain_serve(check_serve(eng.ecfg, st2))
+    if not any("double_booked" in ln for ln in lines2):
+        raise AssertionError(f"double_book_page not named: {lines2}")
+    eng.run()
+    rep = check_serve(eng.ecfg, eng._state)
+    if not rep.clean():
+        raise AssertionError(f"check_serve drained: {explain_serve(rep)}")
+    launches.update(tick_launches(eng))
+    say(card, f"check_serve at full width: clean after 3 ticks ({ms:.3f} "
+              f"ms, NaN scan of {2 * st.pool_k[:, :, :pages].numel() * 2} B "
+              f"of pools included) and drained; inject_nan at {fr.index} -> "
+              f"nan_in_kv; double_book_page slot {fr2.index[0]} entry "
+              f"{fr2.index[1]} -> {[ln for ln in lines2 if 'double' in ln]}")
+    del eng, st, st2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ccfg = dataclasses.replace(cfg, num_layers=min(CKPT_LAYERS,
+                                                   cfg.num_layers))
+    cmodel = lm.init_params(ccfg, seed=0, device=dev)
+
+    def run(eng):
+        for p in prompts:
+            eng.submit(p, max_new=SERVE_MAX_NEW)
+        return eng
+
+    ref = run(build_tick(ccfg, cmodel, dev)[0])
+    ref.run()
+    gold = {r: q.generated for r, q in ref.finished.items()}
+    launches.update(tick_launches(ref))
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    eng = run(build_tick(ccfg, cmodel, dev)[0])
+    ck = CheckpointedEngine(eng, CKPT_DIR, every=CKPT_EVERY, keep_last=1)
+    t0 = time.perf_counter()
+    for _ in range(CKPT_EVERY):
+        ck.step()
+    save_s = time.perf_counter() - t0
+    eng.step()
+    t0 = time.perf_counter()
+    save_engine(eng, CKPT_DIR, CKPT_EVERY + 1, commit=False)
+    crash_s = time.perf_counter() - t0
+    launches.update(tick_launches(eng))
+    nbytes = sum(t.numel() * t.element_size()
+                 for _, t in manager.flatten(eng._state))
+    del eng
+    if manager.latest_step(CKPT_DIR) != CKPT_EVERY:
+        raise AssertionError("the uncommitted save counts as a checkpoint")
+    eng2, _, _ = build_tick(ccfg, cmodel, dev)
+    ptrs = [t.data_ptr() for _, t in manager.flatten(eng2._state)]
+    sync(dev)
+    t0 = time.perf_counter()
+    step = restore_engine(eng2, CKPT_DIR)
+    sync(dev)
+    restore_s = time.perf_counter() - t0
+    if step != CKPT_EVERY or ptrs != [t.data_ptr() for _, t in
+                                     manager.flatten(eng2._state)]:
+        raise AssertionError(f"restored step {step}, or the state moved")
+    eng2.run()
+    got = {r: q.generated for r, q in eng2.finished.items()}
+    if got != gold or eng2.stats != ref.stats or not check_serve(
+            eng2.ecfg, eng2._state).clean():
+        bad = [r for r in gold if got.get(r) != gold[r]]
+        raise AssertionError(f"restored run differs: requests {bad}, stats "
+                             f"{eng2.stats} vs {ref.stats}")
+    launches.update(tick_launches(eng2))
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    full = nbytes + 2 * (cfg.num_layers - ccfg.num_layers) * cfg.num_kv_heads \
+        * (pages + 1) * e["page"] * cfg.hd * 2
+    say(card, f"crash mid-tick ({ccfg.name} at full width, "
+              f"{ccfg.num_layers} layers): committed at tick {CKPT_EVERY} in {save_s:.3f} s "
+              f"(its {CKPT_EVERY} ticks and the save), tick "
+              f"{CKPT_EVERY + 1}'s save ({nbytes} B) written and never "
+              f"committed in {crash_s:.3f} s; restored into a fresh engine's "
+              f"captured graphs (same buffers) in {restore_s:.3f} s; all "
+              f"{len(gold)} requests' tokens and the stats == the "
+              f"uninterrupted run")
+    say(card, f"checkpoint projection (computed from the config, not "
+              f"measured): a {cfg.num_layers}-layer checkpoint would hold "
+              f"{full} B")
+    for name, c in launches.items():
+        results[name]["launches"] = results[name].get("launches", 0) + c
+    say(card, f"main path (robust serving tick) launches, each graph's at "
+              f"capture x its replays: {dict(launches)}")
+    del serve["model"], cmodel, eng2, ref
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2309,6 +2960,10 @@ def main() -> int:
             (phase_serve_agreement, (dev,)),
             (phase_serve_path, (dev, results, serve)),
             (phase_serve_tick, (dev, results, serve)),
+            (phase_sharded_replay, (trace, ttl_trace, dev, results)),
+            (phase_sharded_serve, (dev, results, serve)),
+            (phase_robust, (trace, ttl_trace, dev, results)),
+            (phase_robust_serve, (dev, results, serve)),
             (phase_paged_attention_kernel, (dev, results, serve)),
             (phase_paged_attention_timing, (dev, results, serve))):
         t0 = time.perf_counter()
@@ -2333,7 +2988,7 @@ def main() -> int:
                         "scale_phases")
                or k.startswith(("full_", "serve_", "gqa_", "max_abs_err_",
                                 "layer0_", "global_", "bucket_", "skew_",
-                                "narrow_", "ops_"))}})
+                                "narrow_", "ops_", "sharded_"))}})
     print("kernels " + ", ".join(
         f"{k['name']}: launches={k['launches']} exact={k['exact']} "
         f"ms={k['ms']:.4f}" for k in kernels) + f" [{card}]")

@@ -85,7 +85,8 @@ def make_sketch(cfg: TinyLFUConfig, device) -> TinyLFUState:
 
 def sketch_from_numpy(arrays: dict, *, device) -> TinyLFUState:
     """A reference ``TinyLFUState``'s leaves as numpy arrays (uint32
-    packed/door, int32 additions) -> port sketch."""
+    packed/door, int32 additions) -> port sketch; a per-shard stack's
+    leading ``[D]`` axis carries over."""
     def words(a):
         a = np.array(a)                       # a writable copy
         return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
@@ -93,8 +94,8 @@ def sketch_from_numpy(arrays: dict, *, device) -> TinyLFUState:
 
     return TinyLFUState(
         packed=words(arrays["packed"]), door=words(arrays["door"]),
-        additions=torch.tensor(int(np.asarray(arrays["additions"])),
-                               dtype=torch.int32, device=device))
+        additions=torch.from_numpy(
+            np.array(arrays["additions"], np.int32)).to(device))
 
 
 def sketch_to_numpy(st: TinyLFUState) -> dict:

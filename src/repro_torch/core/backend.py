@@ -45,10 +45,6 @@ from repro_torch.core.refimpl import RefKWay
 
 _REGISTRY: dict[str, type] = {}
 
-#: ROADMAP items still to port, named by the options that need them.
-SHARDS_TODO = ("set sharding is not ported yet (ROADMAP Queue A item 8, "
-               "core/sharded.py)")
-
 #: option pairs the reference refuses, refused with its words
 HIER_TINYLFU = ("hierarchical replay does not support TinyLFU admission "
                 "(the sketch has no per-tier semantics yet)")

@@ -44,11 +44,13 @@ from repro_torch.core import hashing
 from repro_torch.core.hashing import EMPTY
 from repro_torch.core.kway import (NEG_INF, NO_EXPIRY, STATE_LANES,
                                    KWayConfig, KWayState, ensure_expiry,
-                                   make_cache)
+                                   make_cache, state_from_numpy,
+                                   state_to_numpy)
 from repro_torch.core.policies import Policy, victim_scores
 
 __all__ = ["L1_SEED_SALT", "HierarchyConfig", "HierState", "l1_config",
-           "make_hier", "as_hier_state", "replay_l1_over_l2"]
+           "make_hier", "as_hier_state", "hier_from_numpy", "hier_to_numpy",
+           "replay_l1_over_l2"]
 
 #: XOR salt for the L1 set hash — decorrelates the two tiers' set mappings.
 L1_SEED_SALT = 0x7A11
@@ -122,6 +124,20 @@ def as_hier_state(cfg: KWayConfig, hier: HierarchyConfig, state, *,
     return HierState(
         l1=make_cache(l1_config(cfg, hier), device=state.device, ttl=ttl),
         l2=ensure_expiry(state) if ttl else state)
+
+
+def hier_from_numpy(arrays: dict, *, device) -> HierState:
+    """A reference ``HierState`` as ``{"l1": leaves, "l2": leaves}`` (each
+    as ``kway.state_from_numpy`` takes them; a sharded stack's leading
+    axis carries over) -> port state."""
+    return HierState(l1=state_from_numpy(arrays["l1"], device=device),
+                     l2=state_from_numpy(arrays["l2"], device=device))
+
+
+def hier_to_numpy(state: HierState) -> dict:
+    """Port ``HierState`` -> ``{"l1": leaves, "l2": leaves}`` in the
+    reference's layout."""
+    return {"l1": state_to_numpy(state.l1), "l2": state_to_numpy(state.l2)}
 
 
 def carried_tiers(state: HierState, ttl: bool) -> HierState:

@@ -130,7 +130,9 @@ def ensure_expiry(state: KWayState) -> KWayState:
 
 def state_from_numpy(arrays: dict, *, device) -> KWayState:
     """A reference ``KWayState``'s leaves as numpy arrays (uint32
-    keys/fprint, int32 vals/meta_a/meta_b/clock[/expiry]) -> port state."""
+    keys/fprint, int32 vals/meta_a/meta_b/clock[/expiry]) -> port state.
+    Any leading axes carry over: a sharded state's ``[D, S/D, k]`` lanes
+    and ``[D]`` clock too."""
     def lane(name):
         a = np.array(arrays[name])            # a writable copy
         if a.dtype == np.uint32:
@@ -141,8 +143,8 @@ def state_from_numpy(arrays: dict, *, device) -> KWayState:
     return KWayState(
         keys=lane("keys"), fprint=lane("fprint"), vals=lane("vals"),
         meta_a=lane("meta_a"), meta_b=lane("meta_b"),
-        clock=torch.tensor(int(np.asarray(arrays["clock"])),
-                           dtype=torch.int32, device=device),
+        clock=torch.from_numpy(np.array(arrays["clock"], np.int32)).to(
+            device),
         expiry=None if exp is None else lane("expiry"),
     )
 

@@ -6,10 +6,8 @@ step with the deterministic conflict resolution of ``kway.access``, flat,
 ``resident=True`` (``CacheBackend.replay``: kernel 3 on the ``cuda``
 backend, one launch for the whole trace), with per-request ``ttls``, with
 TinyLFU admission (``SimConfig.tinylfu``) or through the L1-over-L2
-``hierarchy`` (kernel 4 on ``cuda``).
-
-Not ported yet, and refused with the ROADMAP item that brings it:
-``shards > 1``.
+``hierarchy`` (kernel 4 on ``cuda``), and with ``shards > 1`` through the
+set-sharded layer (``core/sharded.py``: D kernel-3 launches when resident).
 """
 from __future__ import annotations
 
@@ -22,8 +20,7 @@ import torch
 from repro_torch.core import admission, kway, router
 from repro_torch.core.admission import TinyLFUConfig
 from repro_torch.core.backend import (HIER_TINYLFU, REF_HIER, REF_TINYLFU,
-                                      SHARDS_TODO, make_backend,
-                                      resolve_device)
+                                      make_backend, resolve_device)
 from repro_torch.core.kway import KWayConfig
 
 
@@ -117,6 +114,12 @@ def replay_batched(sim: SimConfig, trace: np.ndarray, batch: int = 64,
     plain version on ``torch``), with or without ``ttls``; ``l1_sets == 0``
     is the flat path unchanged.  The hierarchy takes no TinyLFU and no
     ``two_phase``, as in the reference.
+
+    ``shards > 1`` replays through ``core/sharded.py``'s ``ShardedCache``:
+    routing on the device, per-shard TinyLFU sketches, ``two_phase``,
+    ``ttls`` and ``resident`` all compose with it (the hierarchy runs
+    resident, one kernel-4 launch per shard); only the sequential ``ref``
+    oracle cannot be sharded.
     """
     trace = np.asarray(trace, np.uint32)
     n = trace.shape[0]
@@ -153,7 +156,19 @@ def replay_batched(sim: SimConfig, trace: np.ndarray, batch: int = 64,
                 "resident replay is the fused access path; two_phase is the "
                 "chunked oracle — replay with resident=False")
     if shards > 1:
-        raise ValueError(SHARDS_TODO)
+        if sim.backend == "ref":
+            raise ValueError(
+                "the ref backend is sequential host Python and cannot be "
+                "sharded; use backend='torch' or 'cuda' with shards > 1")
+        from repro_torch.core.sharded import ShardedCache, ShardedConfig
+        sc = ShardedCache(ShardedConfig(cache=sim.cache, num_shards=shards,
+                                        backend=sim.backend),
+                          device=sim.device)
+        hits, _, _ = sc.replay(trace, batch, tinylfu=sim.tinylfu,
+                               two_phase=sim.two_phase,
+                               resident=resident or hierarchy is not None,
+                               hierarchy=hierarchy, ttls=ttls)
+        return hits / n
     chunks, enabled = router.pad_chunks(trace, batch)
     tchunks = None if ttls is None else _pad_ttl_chunks(ttls, batch)
     if (hierarchy is not None or resident

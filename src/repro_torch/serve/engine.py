@@ -37,11 +37,13 @@ prefix cache runs on any of the port's backends (``torch``, ``cuda``,
 ``ref``); the tick needs a traceable one (``torch`` or ``cuda``) and an
 unsharded cache.  On the card the tick runs kernel 2 (one fused probe per
 admission lane), kernel 1 (``peek_victims`` under TinyLFU) and kernel 5
-(every layer of every decode step) inside the graphs.
+(every layer of every decode step) inside the graphs.  With ``shards > 1``
+the host loop's prefix cache is a ``core/sharded.py`` ``ShardedCache``
+(global slot ids, routing on the device); the tick refuses it, as the
+reference does.
 
 Not ported yet, and refused with a ``ValueError`` naming the ROADMAP item:
-temperature sampling, a sharded prefix cache, and models with experts or
-SSM layers.
+temperature sampling, and models with experts or SSM layers.
 """
 from __future__ import annotations
 
@@ -70,8 +72,6 @@ TEMPERATURE_TODO = ("temperature sampling is not ported yet (ROADMAP Queue "
                     "A item 12b: jax.random.categorical has no bit-equal "
                     "torch counterpart, so the sampler needs its own "
                     "design); use temperature=0 (greedy)")
-SHARDS_TODO = ("a sharded prefix cache is not ported yet (ROADMAP Queue A "
-               "item 8, core/sharded.py)")
 UNSHARDED = ("jitted engine requires an unsharded prefix cache (shards == "
              "1); the sharded path is host-loop only")
 
@@ -126,7 +126,8 @@ class EngineConfig:
     max_seq: int = 512
     private_pages: int = 256
     backend: str = "torch"            # cache backend: "torch" | "cuda" | "ref"
-    # > 1 would set-shard the prefix cache: not ported yet (refused)
+    # > 1: the prefix cache's set axis splits across shards, routed on the
+    # device (core/sharded.py); host loop only
     shards: int = 1
     # True: run each engine step as one device-resident tick (ServeState +
     # _tick), captured as CUDA graphs on the card: one graph launch and one
@@ -492,15 +493,21 @@ class Engine:
                 f"({ecfg.max_seq})")
         if ecfg.jitted and ecfg.shards > 1:
             raise ValueError(UNSHARDED)
-        if ecfg.shards > 1:
-            raise ValueError(SHARDS_TODO)
         if ecfg.temperature > 0.0:
             raise ValueError(TEMPERATURE_TODO)
         lm.check_dense(cfg)
         self.device = resolve_device(device)
         self.kcfg = KWayConfig(num_sets=ecfg.num_sets, ways=ecfg.ways,
                                policy=ecfg.policy)
-        self.backend = make_backend(ecfg.backend, self.kcfg, self.device)
+        if ecfg.shards > 1:
+            # ShardedCache keeps the get/put/peek_victims contract with
+            # global slot ids
+            from repro_torch.core.sharded import ShardedCache, ShardedConfig
+            self.backend = ShardedCache(ShardedConfig(
+                cache=self.kcfg, num_shards=ecfg.shards,
+                backend=ecfg.backend), device=self.device)
+        else:
+            self.backend = make_backend(ecfg.backend, self.kcfg, self.device)
         if ecfg.jitted and not self.backend.traceable:
             raise ValueError(
                 f"jitted engine requires a traceable cache backend; "

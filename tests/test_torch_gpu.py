@@ -838,3 +838,126 @@ def test_tick_captures_once_per_kind_and_matches_the_host_loop(cuda):
     assert all(v == 1 for v in counts.values()), counts
     assert steps > 2
     assert runs[True] == runs[False]
+
+
+# ---------------------------------------------------------------------------
+# set sharding and checkpoint / restore on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("mode", ["flat", "ttl", "tinylfu", "defer",
+                                  "hier"])
+def test_sharded_resident_replay_matches_torch_twin(cuda, shards, mode):
+    """Sharded resident replay on the ``cuda`` backend (D launches of
+    kernel 3, or of kernel 4 with the hierarchy) against the sharded torch
+    twin (on the card; on CPU tensors for the hierarchy, whose plain
+    version walks lanes one at a time): hits, deferred count and every
+    lane of the stacked state."""
+    from repro_torch.core.sharded import ShardedCache, ShardedConfig
+    cfg = KWayConfig(num_sets=1024, ways=8, policy=Policy.HYPERBOLIC
+                     if mode == "flat" else Policy.LRU)
+    n, batch = (2**11, 64) if mode == "hier" else (2**15, 256)
+    tr = traces.generate("zipf", n, seed=shards, catalog=2**14)
+    kw, ckw = {}, {}
+    if mode == "ttl":
+        kw["ttls"] = np.random.default_rng(1).integers(0, 3000, n).astype(
+            np.int32)
+    elif mode == "tinylfu":
+        kw["tinylfu"] = admission.for_capacity(cfg.capacity)
+    elif mode == "defer":
+        ckw["route_capacity"] = batch // (2 * shards)
+    elif mode == "hier":
+        kw["hierarchy"] = hierarchy.HierarchyConfig(l1_sets=8, l1_ways=8)
+    twin_dev = torch.device("cpu") if mode == "hier" else cuda
+    kern = ShardedCache(ShardedConfig(cache=cfg, num_shards=shards,
+                                      backend="cuda", **ckw), device=cuda)
+    twin = ShardedCache(ShardedConfig(cache=cfg, num_shards=shards,
+                                      backend="torch", **ckw),
+                        device=twin_dev)
+    krp.reset_trace_counts()
+    got = kern.replay(tr, batch, resident=True, **kw)
+    kind = {"hier": "hier", "tinylfu": "tinylfu"}.get(mode, "flat")
+    assert krp.launches(kind) == shards
+    want = twin.replay(tr, batch, resident=True, **kw)
+    assert got[:2] == want[:2] and got[0] > 0
+    if mode == "defer":
+        assert got[1] > 0
+    tiers = (("l1", "l2") if mode == "hier" else (None,))
+    for tier in tiers:
+        a = got[2] if tier is None else getattr(got[2], tier)
+        b = want[2] if tier is None else getattr(want[2], tier)
+        for f in ("keys", "fprint", "vals", "meta_a", "meta_b", "clock",
+                  "expiry"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert (x is None) == (y is None), f
+            if x is not None:
+                assert torch.equal(x.cpu(), y.cpu()), (tier, f)
+
+
+def test_tick_restore_into_captured_graphs(cuda, tmp_path):
+    """Crash mid-tick on the card: a fresh engine, its graphs captured,
+    restored from the last committed checkpoint through its static
+    buffers (the same addresses, the same graphs, no new capture), then
+    replayed to the end: tokens and stats equal to an uninterrupted
+    run."""
+    from repro_torch.ckpt import manager
+    from repro_torch.robust import faults, recovery
+    from repro_torch.serve import engine as teng
+    cfg, model = _tick_model(cuda)
+    prompts = _tick_prompts(cfg.vocab_size, 6, seed=4)
+
+    def build():
+        eng = teng.Engine(cfg, model, teng.EngineConfig(**TICK_BASE),
+                          device=cuda)
+        for p in prompts:
+            eng.submit(p, max_new=6)
+        return eng
+
+    ref = build()
+    ref.run()
+    eng = build()
+    root = str(tmp_path / "ckpt")
+    for _ in range(3):
+        eng.step()
+    recovery.save_engine(eng, root, 3)
+    eng.step()
+    faults.crashed_save(eng._state, root, 4)
+    eng2 = teng.Engine(cfg, model, teng.EngineConfig(**TICK_BASE),
+                       device=cuda)
+    ptrs = [t.data_ptr() for _, t in manager.flatten(eng2._state)]
+    graphs = dict(eng2._graphs)
+    captures = teng.capture_counts()
+    assert recovery.restore_engine(eng2, root) == 3
+    assert [t.data_ptr() for _, t in manager.flatten(eng2._state)] == ptrs
+    eng2.run()
+    assert eng2._graphs == graphs and teng.capture_counts() == captures
+    assert {r: q.generated for r, q in eng2.finished.items()} == \
+        {r: q.generated for r, q in ref.finished.items()}
+    assert eng2.stats == ref.stats
+
+
+def test_ladder_on_the_card_raises_kernel_faults(cuda, monkeypatch):
+    """On the card the healthy ladder lands on kernel 3 with no event; a
+    kernel's exception reaches the caller (no ``torch-scan`` result) and a
+    validator alarm on every rung ends at ``cuda-scan``."""
+    from repro_torch.kernels import ops
+    from repro_torch.robust import events, resilient_replay
+    cfg = KWayConfig(num_sets=16, ways=4)
+    tr = traces.generate("zipf", 2000, seed=3, catalog=256)
+    chunks, en = router.pad_chunks(tr, 64)
+    c0 = events.cursor()
+    out = resilient_replay(cfg, chunks, en, device=cuda)
+    assert out.attempts == (("cuda-resident", "ok"),)
+    assert events.count(start=c0) == 0
+    with pytest.raises(RuntimeError, match="last ladder rung 'cuda-scan'"):
+        resilient_replay(cfg, chunks, en, device=cuda,
+                         validate_fn=lambda st, sk: (False, "always bad"))
+
+    def boom(*a, **k):
+        raise RuntimeError("injected kernel fault")
+
+    monkeypatch.setattr(ops, "replay_resident", boom)
+    c0 = events.cursor()
+    with pytest.raises(RuntimeError, match="injected kernel fault"):
+        resilient_replay(cfg, chunks, en, device=cuda)
+    assert events.count(start=c0) == 0

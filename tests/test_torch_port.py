@@ -4,14 +4,15 @@
     (the test hides any) they raise, naming the ``device="cpu"`` option;
   * options whose modules are not ported yet raise ``ValueError`` naming
     the ROADMAP item, and the option pairs the reference refuses raise
-    ``ValueError`` too;
+    ``ValueError`` too; ``shards > 1``, ported now, runs and equals the
+    reference;
   * neither ``src/repro_torch`` nor ``chip_smoke.py`` imports JAX or any
     module of ``repro`` (checked in a subprocess and in the sources);
   * ``chip_smoke.py`` fails, and prints no result, without a card;
   * the serving engine keeps the reference's refusals (the jitted tick
     needs a traceable backend and an unsharded cache) and refuses what is
-    not ported yet (temperature sampling, shards, MoE and SSM layers) with
-    the ROADMAP item.
+    not ported yet (temperature sampling, MoE and SSM layers) with the
+    ROADMAP item.
 """
 import ast
 import os
@@ -60,15 +61,26 @@ HIER = HierarchyConfig(l1_sets=2, l1_ways=2)
 
 
 @pytest.mark.parametrize("sim_kw,kwargs,match", [
-    pytest.param({}, dict(shards=2), "Queue A item 8",
-                 id="kwargs0-Queue A item 8"),
+    pytest.param({}, dict(shards=2), None, id="kwargs0-Queue A item 8"),
     pytest.param(dict(two_phase=True), dict(hierarchy=HIER), "two_phase",
                  id="kwargs1-Queue B item 4"),
 ])
 def test_unported_options_refused(sim_kw, kwargs, match):
-    """``shards > 1`` is the one option still to port; the hierarchy is
-    ported, and refuses ``two_phase`` as the reference does."""
+    """No option of ``replay_batched`` is left to port: ``shards > 1``
+    (ROADMAP Queue A item 8) runs and gives the reference's hit ratio
+    (``match`` None), and the hierarchy refuses ``two_phase`` as the
+    reference does."""
     sim = simulate.SimConfig(CFG, device="cpu", **sim_kw)
+    if match is None:
+        from repro.core import simulate as jsim
+        from repro.core.kway import KWayConfig as JConfig
+        tr = np.random.default_rng(0).integers(0, 40, 300).astype(np.uint32)
+        want = jsim.replay_batched(jsim.SimConfig(JConfig(num_sets=8,
+                                                          ways=4)),
+                                   tr, batch=16, **kwargs)
+        assert simulate.replay_batched(sim, tr, batch=16, **kwargs) == want
+        assert want > 0
+        return
     with pytest.raises(ValueError, match=match):
         simulate.replay_batched(sim, np.arange(10, dtype=np.uint32), **kwargs)
 
@@ -227,11 +239,16 @@ def _serve_cfg(arch="deepseek-7b"):
     return configs.get(arch).smoke
 
 
+def _jserve_cfg(arch="deepseek-7b"):
+    from repro import configs
+    return configs.get(arch).smoke
+
+
 @pytest.mark.parametrize("ecfg_kw,match", [
     (dict(jitted=True, backend="ref"), "traceable"),
     (dict(jitted=True, shards=2), "unsharded"),
     (dict(temperature=0.7), "Queue A item 12"),
-    (dict(shards=2), "Queue A item 8"),
+    pytest.param(dict(shards=2), None, id="ecfg_kw3-Queue A item 8"),
     (dict(max_seq=100, page=16), "multiple of page"),
     (dict(decode_block=0), "decode_block"),
     (dict(max_prompt=24, page=16), "max_prompt"),
@@ -239,8 +256,36 @@ def _serve_cfg(arch="deepseek-7b"):
 ])
 def test_engine_refusals(ecfg_kw, match):
     """The reference's own refusals, and the options not ported yet, raise
-    ValueError before the model is touched."""
+    ValueError before the model is touched.  ``shards > 1`` (ROADMAP Queue
+    A item 8, ``match`` None) is ported: the host loop runs it and equals
+    the reference engine's run in stats, pages and prefix hits."""
     from repro_torch.serve.engine import Engine, EngineConfig
+    if match is None:
+        import jax
+        from repro import configs as jconfigs
+        from repro.models import lm as jlm
+        from repro.serve import engine as jeng
+        from repro_torch.models import lm
+        cfg, jcfg = _serve_cfg(), _jserve_cfg()
+        jparams = jlm.init_params(jcfg, jax.random.key(0))
+        model = lm.params_from_numpy(
+            cfg, jax.tree.map(np.asarray, jax.device_get(jparams)),
+            device="cpu")
+        kw = dict(ecfg_kw, page=8, num_sets=4, ways=2, max_batch=2,
+                  max_seq=64)
+        runs = []
+        for eng in (Engine(cfg, model, EngineConfig(**kw), device="cpu"),
+                    jeng.Engine(jcfg, jparams, jeng.EngineConfig(**kw))):
+            r = np.random.default_rng(3)
+            shared = r.integers(2, 400, 16)
+            for n in (3, 9, 12):
+                eng.submit(np.concatenate([shared, r.integers(2, 400, n)]),
+                           max_new=2)
+            fin = eng.run()
+            runs.append((eng.stats, {i: (q.pages, q.prefix_hits)
+                                     for i, q in fin.items()}))
+        assert runs[0] == runs[1] and runs[0][0]["prefix_hits"] > 0
+        return
     with pytest.raises(ValueError, match=match):
         Engine(_serve_cfg(), None, EngineConfig(**ecfg_kw), device="cpu")
 
