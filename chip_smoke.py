@@ -127,6 +127,25 @@ Between 9 and 10, set sharding and the robustness layer, each path counted
      equal to an uninterrupted one; the checkpoint's bytes and its save
      and restore seconds.
 
+Last, the paper-figure sweep (``repro_torch/eval``), each figure run with
+every launch counter and the sweep's capture counter set to 0 just before
+it and read just after:
+
+ 15. every figure of ``eval.figures.FIGURES`` at ``quick=True`` on the card,
+     with the arguments of its committed baseline, artifacts under
+     ``chiprun_out/eval/``: one CUDA-graph capture per torch shape group
+     and one kernel-3 launch per ``cuda`` sweep point (checked); each of
+     the 8 committed baselines gated by the port's ``compare_to_baseline``
+     (``quick.json``'s 96 records exactly, the seven ``BENCH_*_quick.json``
+     within each record's tol, the 6 ``showdown-hr/*/cachetools`` records
+     named as not reproducible without ``cachetools``); then the
+     hit-ratio figure at full size (5 families, seeds 42-44, 60000
+     requests), every ``cuda`` record equal to its ``torch`` record; a
+     torch group's step eager against its CUDA graph; each figure's wall
+     seconds, captures and launches, and the timing rows of the
+     throughput and showdown figures beside the card.  The launches are
+     added to the kernels' counts in the JSON line.
+
 The figures of 13 and 14 (validation, scrub, checkpoint) are not kernel
 work: they are printed on lines of their own and stay out of the JSON
 summary, as does the checkpoint's size at full depth, which is computed
@@ -2873,6 +2892,200 @@ def phase_robust_serve(card, dev, results, serve):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the paper-figure sweep (repro_torch/eval) and the showdown harness
+# ---------------------------------------------------------------------------
+
+EVAL_OUT = os.path.join(HERE, "chiprun_out", "eval")
+#: each figure of the port's FIGURES with the arguments its committed
+#: baseline's spec records (None: no committed baseline, the defaults)
+EVAL_RUNS = (
+    ("hit_ratio", "quick.json", {"backends": ("torch", "cuda")}),
+    ("sampled_vs_limited", None, {}),
+    ("admission", None, {}),
+    ("throughput", "BENCH_throughput_fused_quick.json",
+     {"backends": ("torch", "cuda"), "shards": (1,)}),
+    ("throughput_resident", "BENCH_throughput_resident_quick.json",
+     {"backends": ("torch", "cuda")}),
+    ("throughput_shards", "BENCH_throughput_vs_shards_quick.json",
+     {"shards": (1, 2, 4, 8)}),
+    ("showdown", "BENCH_showdown_quick.json", {}),
+    ("synthetic_mix", None, {}),
+    ("serving", None, {}),
+    ("serving_engine", "BENCH_serving_engine_quick.json", {}),
+    ("robustness", "BENCH_robustness_quick.json", {"ttl": True}),
+    ("hierarchy", "BENCH_throughput_hierarchy_quick.json", {}),
+)
+#: the timing figures whose rows are printed beside the card
+EVAL_TIMED = ("throughput", "throughput_resident", "throughput_shards",
+              "showdown")
+#: comparable records a machine without ``cachetools`` cannot reproduce
+CACHETOOLS_HR = tuple(f"showdown-hr/{f}/{p}/cachetools"
+                      for f in ("zipf", "oltp_mix", "lirs_two_pools")
+                      for p in ("lru", "lfu"))
+
+
+def eval_expected(records) -> tuple:
+    """(torch shape groups, cuda points) of a hit-ratio figure's records:
+    the captures and kernel-3 launches its run must show."""
+    groups = {(r["num_sets"], r["ways"], r["sample"], r["n"], r["admission"])
+              for r in records if r["backend"] == "torch"}
+    points = sum(len(r["seeds"]) for r in records if r["backend"] == "cuda")
+    return len(groups), points
+
+
+def eval_run(card, name, kw, results, quick=True):
+    """Run one figure on the card with the launch and capture counters set
+    to 0 just before; check one capture per torch shape group and one
+    kernel-3 launch per cuda point; add the launches to the kernels'
+    counts.  -> (artifact, seconds)."""
+    from repro_torch.eval import artifacts, figures, runner
+
+    fn, figure = figures.FIGURES[name]
+    reset_launch_counts()
+    runner.reset_capture_counts()
+    t0 = time.perf_counter()
+    spec, records, skipped = fn(quick=quick, device="cuda", **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    captures = runner.capture_counts()
+    art = artifacts.make_artifact(figure, spec, records, skipped,
+                                  device="cuda")
+    tag = "" if quick else "_full"
+    artifacts.write_artifact(os.path.join(EVAL_OUT, f"BENCH_{figure}{tag}"
+                                          ".json"), art)
+    if "assoc" in spec:
+        groups, points = eval_expected(records)
+        k3 = counts["replay_resident"] + counts["replay_resident_tinylfu"]
+        if sum(captures.values()) != groups or any(
+                v != 1 for v in captures.values()):
+            raise AssertionError(f"{name}: {captures} captures for {groups} "
+                                 f"torch shape groups")
+        if k3 != points:
+            raise AssertionError(f"{name}: {k3} kernel-3 launches for "
+                                 f"{points} cuda sweep points")
+    for k, c in counts.items():
+        results[k]["launches"] = results[k].get("launches", 0) + c
+        results[k]["eval_launches"] = results[k].get("eval_launches", 0) + c
+    say(card, f"eval {figure}{' (full)' if not quick else ''}: "
+              f"{time.perf_counter() - t0:.1f} s wall, {len(records)} "
+              f"records, {len(skipped)} skipped; CUDA-graph captures "
+              f"{sum(captures.values())} over "
+              f"{len(captures)} torch shape groups; launches {counts}")
+    if name in EVAL_TIMED:
+        for r in records:
+            if "p50_req_s" in r or r["metric"] == "req_per_s":
+                say(card, f"eval {figure} {r['id']}: {r['metric']} "
+                          f"{r['value']} p50_req_s "
+                          f"{r.get('p50_req_s', r['value'])} p90_req_s "
+                          f"{r.get('p90_req_s')}")
+    return art, secs
+
+
+def eval_step_ms(card, dev):
+    """ms per request of a torch sweep group (the quick grid's k8 group: 4
+    families x 3 policies, 128 x 8), eager on the card against its CUDA
+    graph replayed once per request (the whole ``_replay_group_torch``
+    call, capture included, over 6000 requests), without and with
+    TinyLFU."""
+    from repro_torch.core import admission, hashing, traces
+    from repro_torch.eval import runner
+
+    fams = ("zipf", "zipf_shift", "scan_loop", "oltp_mix")
+    trs = np.stack([traces.generate(f, 6000, seed=42) for f in fams
+                    for _ in range(3)])
+    tc = hashing.key_tensor(trs, dev)
+    pidx = torch.tensor([0, 1, 4] * 4, dtype=torch.int32, device=dev)
+    out = {}
+    for label, tl in (("flat", None), ("tinylfu",
+                                       admission.for_capacity(1024))):
+        g = runner._Group(128, 8, 0, runner.HASH_SEED, tl, pidx, tc)
+        for _ in range(20):
+            g.step()
+        steps = 300
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            g.step()
+        torch.cuda.synchronize()
+        eager = (time.perf_counter() - t0) * 1e3 / steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner._replay_group_torch(128, 8, 0, runner.HASH_SEED, tl, pidx, tc)
+        torch.cuda.synchronize()
+        graph = (time.perf_counter() - t0) * 1e3 / tc.shape[1]
+        out[label] = (eager, graph)
+        say(card, f"eval torch group step ({label}, C=12, 128x8): eager "
+                  f"{eager:.4f} ms, CUDA graph {graph:.4f} ms per request "
+                  f"({eager / graph:.1f}x)")
+    return out
+
+
+def phase_eval(card, dev, results):
+    """Every figure of the port's FIGURES at quick size on the card, each
+    gated against its committed baseline (quick.json exactly, all 96
+    records; the seven BENCH_*_quick.json within each record's tol, the 6
+    cachetools records named as not reproducible here); then the full-size
+    hit-ratio figure (5 families x 3 seeds x 60000 requests), its cuda
+    records equal to its torch records."""
+    from repro_torch.eval import artifacts
+    from repro_torch.showdown import HAVE_CACHETOOLS
+
+    eval_step_ms(card, dev)
+    seconds = {}
+    for name, baseline, kw in EVAL_RUNS:
+        art, seconds[name] = eval_run(card, name, kw, results)
+        if baseline is None:
+            continue
+        base = artifacts.load_artifact(os.path.join(BASELINES, baseline))
+        cmp = [r for r in base["records"] if r.get("comparable")]
+        exact = baseline == "quick.json"
+        breaches = artifacts.compare_to_baseline(
+            art, base, **({"tol": 0.0} if exact else {}))
+        if exact:
+            got = {r["id"]: r["value"] for r in art["records"]}
+            differ = [r["id"] for r in cmp
+                      if got.get(artifacts.port_id(r["id"])) != r["value"]]
+            if len(cmp) != 96 or differ or breaches:
+                raise AssertionError(f"quick.json: {len(cmp)} records, "
+                                     f"differing {differ}, {breaches}")
+        excused = []
+        if name == "showdown" and not HAVE_CACHETOOLS:
+            excused = [f"{rid}: present in baseline, missing from run"
+                       for rid in CACHETOOLS_HR]
+            if sorted(b for b in breaches if b in excused) != sorted(excused):
+                raise AssertionError(f"showdown breaches {breaches}")
+        left = [b for b in breaches if b not in excused]
+        if left:
+            raise AssertionError(f"{baseline}: {len(left)} breaches: {left}")
+        say(card, f"eval {baseline}: {len(cmp) - len(excused)}/{len(cmp)} "
+                  f"comparable records reproduced"
+                  f"{' exactly (delta 0.0)' if exact else ' within tol'}"
+                  + (f"; not reproducible without cachetools: "
+                     f"{len(excused)} ({', '.join(CACHETOOLS_HR)})"
+                     if excused else ""))
+
+    art, seconds["hit_ratio_full"] = eval_run(
+        card, "hit_ratio", {"backends": ("torch", "cuda")}, results,
+        quick=False)
+    by = {r["id"]: r for r in art["records"]}
+    cuda = [r for r in art["records"] if r["backend"] == "cuda"]
+    differ = [r["id"] for r in cuda
+              if r["per_seed"] != by[r["id"].replace("/cuda/", "/torch/")][
+                  "per_seed"]]
+    spec = art["spec"]
+    if len(cuda) != 45 or differ or spec["n"] != 60_000 or len(
+            spec["families"]) != 5 or list(spec["seeds"]) != [42, 43, 44]:
+        raise AssertionError(f"full-size hit ratio: {len(cuda)} cuda "
+                             f"records, differing from torch: {differ}")
+    say(card, f"eval hit_ratio_vs_associativity (full: 5 families, seeds "
+              f"42-44, n 60000, capacity 1024): {len(cuda)}/45 cuda records "
+              f"equal to their torch records, every seed")
+    say(card, "eval seconds per figure: " + json.dumps(
+        {k: round(v, 2) for k, v in seconds.items()}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2965,7 +3178,8 @@ def main() -> int:
             (phase_robust, (trace, ttl_trace, dev, results)),
             (phase_robust_serve, (dev, results, serve)),
             (phase_paged_attention_kernel, (dev, results, serve)),
-            (phase_paged_attention_timing, (dev, results, serve))):
+            (phase_paged_attention_timing, (dev, results, serve)),
+            (phase_eval, (dev, results))):
         t0 = time.perf_counter()
         phase(card, *args)
         say(card, f"{phase.__name__} done in {time.perf_counter() - t0:.1f} s")
@@ -2987,6 +3201,7 @@ def main() -> int:
                         "split_us", "scale_ms", "scale_device_ms",
                         "scale_phases")
                or k.startswith(("full_", "serve_", "gqa_", "max_abs_err_",
+                                "eval_",
                                 "layer0_", "global_", "bucket_", "skew_",
                                 "narrow_", "ops_", "sharded_"))}})
     print("kernels " + ", ".join(

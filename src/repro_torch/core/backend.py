@@ -32,6 +32,7 @@ counterpart.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -44,6 +45,28 @@ from repro_torch.core.kway import KWayConfig, KWayState
 from repro_torch.core.refimpl import RefKWay
 
 _REGISTRY: dict[str, type] = {}
+
+#: Shared memory per block, in bytes, that kernel 3's size rule
+#: (``kernels/replay.py`` ``resident_fits``) holds a shape to in place of the
+#: card's opt-in; None: the card's own.  Set only through ``smem_budget``.
+SMEM_BUDGET = None
+
+
+@contextlib.contextmanager
+def smem_budget(nbytes: int):
+    """Hold kernel 3 to ``nbytes`` of shared memory per block while open
+    (restored in ``finally``): the counterpart of the reference's
+    ``vmem_budget``.  It holds off the card too, where the plain versions
+    use none, so a forced breach (``smem_budget(0)``) takes the chunked
+    path on any device."""
+    global SMEM_BUDGET
+    prev = SMEM_BUDGET
+    SMEM_BUDGET = nbytes
+    try:
+        yield
+    finally:
+        SMEM_BUDGET = prev
+
 
 #: option pairs the reference refuses, refused with its words
 HIER_TINYLFU = ("hierarchical replay does not support TinyLFU admission "
@@ -337,7 +360,7 @@ class CudaBackend(CacheBackend):
                 component="cuda.replay", reason="smem_budget",
                 fallback_from="cuda-resident", fallback_to="cuda-scan",
                 detail=(f"kernel 3 needs {need} B of shared memory per "
-                        f"block (opt-in {krp._smem_optin(self.device)}) "
+                        f"block (limit {krp.smem_limit(self.device)}) "
                         f"and takes at most {krp.MAX_BATCH} lanes a chunk "
                         f"(num_sets={self.cfg.num_sets}, ways="
                         f"{self.cfg.ways}, batch={batch}); falling back "

@@ -106,6 +106,12 @@ class KWayConfig:
         return self.num_sets * self.ways
 
 
+def fully_associative(capacity: int, policy: Policy,
+                      sample: int = 0) -> KWayConfig:
+    """The paper's baseline: one set spanning the whole cache."""
+    return KWayConfig(num_sets=1, ways=capacity, policy=policy, sample=sample)
+
+
 def make_cache(cfg: KWayConfig, *, device, ttl: bool = False) -> KWayState:
     shape = (cfg.num_sets, cfg.ways)
 
@@ -542,3 +548,24 @@ def replay_chunks(access, state: KWayState, qkeys, enabled, ttls=None):
         hits[t] = hit.sum()
         evs[t] = ev.sum()
     return hits, evs, state
+
+
+# ---------------------------------------------------------------------------
+# AoS record packing (the KW-WFA layout baseline)
+# ---------------------------------------------------------------------------
+
+def pack_aos(state: KWayState) -> torch.Tensor:
+    """Interleave the SoA lanes into one int32 [S, k, 4] record array
+    (keys, vals, meta_a, meta_b): KW-WFA keeps a node per way, so reading
+    a record touches 4 interleaved words."""
+    return torch.stack([state.keys, state.vals, state.meta_a, state.meta_b],
+                       dim=-1)
+
+
+def unpack_aos(rec: torch.Tensor, clock: torch.Tensor) -> KWayState:
+    """The inverse of ``pack_aos``; ``fprint`` is recomputed from the keys
+    (as the reference does, empty ways included)."""
+    keys = rec[..., 0]
+    return KWayState(keys=keys, fprint=hashing.fingerprint(keys),
+                     vals=rec[..., 1], meta_a=rec[..., 2],
+                     meta_b=rec[..., 3], clock=clock)

@@ -81,3 +81,60 @@ def on_insert(policy: int, now: torch.Tensor, shape: tuple[int, ...] = (),
     if policy == Policy.HYPERBOLIC:
         return one, now_arr  # (n=1, t0=now)
     raise ValueError(f"unknown policy {policy}")
+
+
+# ---------------------------------------------------------------------------
+# Dynamic dispatch: the policy as a tensor.
+#
+# The functions above branch on ``policy`` in Python.  The sweep runner
+# (``repro_torch/eval/runner.py``) stacks same-shape configurations with
+# different policies into one step (one CUDA graph on the card), so there
+# the policy is data: each ``_dyn`` form evaluates the transitions of the
+# candidate ``policies`` (cheap, elementwise) and selects by ``policy_idx``
+# with ``torch.where``, bit for bit the static form of the selected policy.
+# A caller that knows which policies its lanes hold passes just those (a
+# lane whose index is not among them gets 0, as ``jnp.select``'s default).
+# ---------------------------------------------------------------------------
+
+def _select(policy_idx: torch.Tensor, branches: dict) -> torch.Tensor:
+    """``branches[p]`` where ``policy_idx == p`` (broadcasting), 0 where no
+    candidate matches."""
+    vals = list(branches.values())
+    out = torch.zeros_like(torch.broadcast_tensors(policy_idx, *vals)[1])
+    for p, v in reversed(branches.items()):
+        out = torch.where(policy_idx == int(p), v, out)
+    return out
+
+
+def _select_pair(policy_idx: torch.Tensor, pairs: dict):
+    return (_select(policy_idx, {p: a for p, (a, _) in pairs.items()}),
+            _select(policy_idx, {p: b for p, (_, b) in pairs.items()}))
+
+
+def victim_scores_dyn(policy_idx: torch.Tensor, meta_a: torch.Tensor,
+                      meta_b: torch.Tensor, now: torch.Tensor,
+                      stored_keys: torch.Tensor,
+                      policies=tuple(Policy)) -> torch.Tensor:
+    """``victim_scores`` with ``policy_idx`` an int tensor broadcastable to
+    the metadata, over the candidate ``policies``."""
+    return _select(policy_idx, {p: victim_scores(p, meta_a, meta_b, now,
+                                                 stored_keys)
+                                for p in policies})
+
+
+def on_hit_dyn(policy_idx: torch.Tensor, meta_a: torch.Tensor,
+               meta_b: torch.Tensor, now: torch.Tensor,
+               policies=tuple(Policy)):
+    """``on_hit`` with ``policy_idx`` as a tensor."""
+    return _select_pair(policy_idx, {p: on_hit(p, meta_a, meta_b, now)
+                                     for p in policies})
+
+
+def on_insert_dyn(policy_idx: torch.Tensor, now: torch.Tensor,
+                  shape: tuple[int, ...] = (), device=None,
+                  policies=tuple(Policy)):
+    """``on_insert`` with ``policy_idx`` as a tensor."""
+    if device is None and isinstance(policy_idx, torch.Tensor):
+        device = policy_idx.device
+    return _select_pair(policy_idx, {p: on_insert(p, now, shape, device)
+                                     for p in policies})

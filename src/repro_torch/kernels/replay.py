@@ -188,15 +188,27 @@ def resident_smem_bytes(cfg: kway.KWayConfig, batch: int,
     return OWNER_WARPS * 4 * ints
 
 
+def smem_limit(device) -> int | None:
+    """The shared memory per block kernel 3's size rule holds a shape to
+    on ``device``: an open ``smem_budget``, else the card's opt-in (None off
+    the card: no limit)."""
+    from repro_torch.core import backend
+    if backend.SMEM_BUDGET is not None:
+        return backend.SMEM_BUDGET
+    return _smem_optin(torch.device(device))
+
+
 def resident_fits(cfg: kway.KWayConfig, batch: int, tinylfu: bool,
                   device) -> bool:
     """Whether kernel 3 takes chunks of ``batch`` lanes of ``cfg`` on
     ``device`` (a rule on size, the same as the C entry's checks): at most
     ``MAX_BATCH`` lanes, and on the card its form's shared memory within
-    the opt-in per block.  ``CudaBackend.replay`` runs the chunked path
-    where it does not."""
-    return (batch <= MAX_BATCH
-            and _smem_fits(resident_smem_bytes(cfg, batch, tinylfu), device))
+    the opt-in per block, or, while ``core.backend.smem_budget`` is open,
+    within that budget on any device.  ``CudaBackend.replay`` runs the
+    chunked path where it does not."""
+    limit = smem_limit(device)
+    return batch <= MAX_BATCH and (
+        limit is None or resident_smem_bytes(cfg, batch, tinylfu) <= limit)
 
 
 def insert_cap(cfg: kway.KWayConfig, batch: int) -> int:

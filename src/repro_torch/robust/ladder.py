@@ -223,8 +223,8 @@ def resilient_replay(cfg: KWayConfig, chunks, enabled, tinylfu=None,
                 detail=(f"kernel 3 does not take chunks of {batch} lanes of "
                         f"num_sets={cfg.num_sets} x ways={cfg.ways} "
                         f"(needs {need} B "
-                        f"of shared memory per block, opt-in "
-                        f"{krp._smem_optin(dev)}; at most {krp.MAX_BATCH} "
+                        f"of shared memory per block, limit "
+                        f"{krp.smem_limit(dev)}; at most {krp.MAX_BATCH} "
                         f"lanes); falling back to cuda-scan"))
 
         out = _attempt(

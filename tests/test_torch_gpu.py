@@ -13,6 +13,8 @@ is held at the reference's tolerances, 2e-5 in float32 and 3e-2 in
 bfloat16.  This file imports no JAX, so it runs where only torch is
 installed.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -961,3 +963,84 @@ def test_ladder_on_the_card_raises_kernel_faults(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="injected kernel fault"):
         resilient_replay(cfg, chunks, en, device=cuda)
     assert events.count(start=c0) == 0
+
+
+# ---------------------------------------------------------------------------
+# the eval sweep (repro_torch/eval)
+# ---------------------------------------------------------------------------
+
+def test_eval_timer_times_execution_not_dispatch(cuda):
+    """``time_replay_percentiles`` blocks on a CUDA result: its samples
+    cover the kernels' execution (tens of ms here), not the microseconds
+    of their launch.  Dispatch and synced times are each the least of five
+    calls."""
+    from repro_torch.eval import timing
+    x = torch.randn(4096, 4096, device=cuda) / 64.0
+
+    def heavy():
+        a = x
+        for _ in range(8):
+            a = a @ x
+        return a
+
+    timing.block(heavy())
+    dispatch, synced = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = heavy()
+        dispatch.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timing.block(heavy())
+        synced.append(time.perf_counter() - t0)
+    del y
+    st = timing.time_replay_percentiles(heavy, iters=5, warmup=1)
+    assert st["p50"] >= 0.5 * min(synced), (st, dispatch, synced)
+    if min(synced) > 20 * min(dispatch):
+        assert st["p50"] > 5 * min(dispatch), (st, dispatch, synced)
+
+
+@pytest.mark.parametrize("assoc,adm", [("k4", None), ("sampled4", "tl"),
+                                       ("full", "tl"), ("k8", None)])
+def test_eval_group_graph_equals_eager(cuda, assoc, adm):
+    """The torch group's CUDA-graph replay equals the same step run eagerly
+    on the card and the group on the CPU, lane for lane."""
+    from repro_torch.eval import runner
+    s, k, sample = runner.assoc_shape(assoc, 64)
+    tl = admission.for_capacity(64) if adm else None
+    trs = np.stack([traces.generate(f, 700, seed=sd)
+                    for f in ("zipf", "oltp_mix") for sd in (1, 2)] * 3)[:10]
+    pidx = [p % 5 for p in range(10)]
+
+    def run(dev, graph):
+        tc = hashing.key_tensor(trs, dev)
+        pi = torch.tensor(pidx, dtype=torch.int32, device=dev)
+        if graph:
+            return runner._replay_group_torch(s, k, sample, runner.HASH_SEED,
+                                              tl, pi, tc).cpu()
+        g = runner._Group(s, k, sample, runner.HASH_SEED, tl, pi, tc)
+        for _ in range(tc.shape[1]):
+            g.step()
+        return g.hits.cpu()
+
+    runner.reset_capture_counts()
+    graphed = run(cuda, True)
+    assert sum(runner.capture_counts().values()) == 1
+    assert torch.equal(graphed, run(cuda, False))
+    assert torch.equal(graphed, run(torch.device("cpu"), False))
+
+
+@pytest.mark.parametrize("adm", ["none", "tinylfu"])
+def test_eval_cuda_point_is_one_kernel3_launch(cuda, adm):
+    from repro_torch.eval import runner
+    spec = runner.HitRatioSpec(families=("zipf",), policies=(Policy.LFU,),
+                               assoc=("k8",), backends=("cuda", "torch"),
+                               admissions=(adm,), capacity=256, n=2000,
+                               seeds=(4,))
+    krp.reset_trace_counts()
+    recs, _ = runner.run_hit_ratio_sweep(spec, device=cuda)
+    assert krp.launches("tinylfu" if adm == "tinylfu" else "flat") == 1
+    assert sum(krp.trace_counts().values()) == 1
+    by = {r["backend"]: r["value"] for r in recs}
+    assert by["cuda"] == by["torch"]

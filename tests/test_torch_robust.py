@@ -51,11 +51,10 @@ from repro_torch.ckpt import manager
 from repro_torch.core import admission
 from repro_torch.core import hierarchy as th
 from repro_torch.core import kway as tkway
-from repro_torch.core.backend import make_backend
+from repro_torch.core.backend import make_backend, smem_budget
 from repro_torch.core.kway import KWayConfig
 from repro_torch.core.policies import Policy
 from repro_torch.kernels import ops
-from repro_torch.kernels import replay as krp
 from repro_torch.models import lm
 from repro_torch.robust import (CheckpointedEngine, check_cache, check_hier,
                                 check_serve, events, explain_cache,
@@ -399,14 +398,15 @@ def test_ladder_healthy_lands_on_top_rung():
     np.testing.assert_array_equal(out.hits.numpy(), _flat_hits(True))
 
 
-def test_ladder_smem_breach_takes_scan_rung_with_event(monkeypatch):
-    """Where kernel 3 does not take the shape, one ``smem_budget`` event
-    and the ``cuda-scan`` rung, with the same hits."""
+def test_ladder_smem_breach_takes_scan_rung_with_event():
+    """Where kernel 3 does not take the shape (here under a 64-byte
+    ``smem_budget``), one ``smem_budget`` event and the ``cuda-scan`` rung,
+    with the same hits."""
     _, tcfg = _cfgs()
     chunks, enabled = _chunks()
-    monkeypatch.setattr(krp, "_smem_optin", lambda device: 64)
     c0 = events.cursor()
-    out = resilient_replay(tcfg, chunks, enabled, device="cpu")
+    with smem_budget(64):
+        out = resilient_replay(tcfg, chunks, enabled, device="cpu")
     assert out.rung == "cuda-scan"
     assert ("cuda-resident", "smem_budget") in out.attempts
     assert events.count(component="ladder.replay", reason="smem_budget",
