@@ -23,15 +23,15 @@ serving slice:
      check: 2^20 requests of which every other one is the same key, held
      exactly to the twin;
   4. holds kernel 3's TinyLFU branch to the chunked torch twin (record ->
-     peek -> admit -> access) at full size, LRU over the whole trace, LFU
-     and a run whose sample ages the sketch twice over its first 2^21
-     requests: per-chunk counts, final state and final sketch, exactly;
+     peek -> admit -> access) at full size, LRU over the first 2^21
+     requests, LFU and a run whose sample ages the sketch twice over the
+     first 2^20: per-chunk counts, final state and final sketch, exactly;
      the ``cuda`` chunked path (kernel 1 peeks, kernel 2 probes) equals
      both on the LRU run;
   5. holds kernel 4 (``replay_hierarchical``) to its plain version
      (``hierarchy.replay_l1_over_l2``, run on CPU tensors) over the first
      2^14 requests against the full-size L2 filled by a 2^20-request flat
-     prefix, LRU and HYPERBOLIC, a TTL run, and 2^16 requests through an
+     prefix, LRU and HYPERBOLIC, a TTL run, and 2^15 requests through an
      aliasing-heavy hierarchy (L2 64 x 8 under L1 16 x 16, where most L2
      rows the kernel copies ahead are written before they are used):
      per-chunk counts and both tiers, exactly;
@@ -82,8 +82,8 @@ serving slice:
      ``set_sync_debug_mode("error")``, one capture per graph kind; two
      profiled waves count kernels 2, 1 and 5 as device rows of the
      replays (the wrappers' counters move only at capture); tokens/s of
-     the tick and the host loop in turns (host / tick / tick / host, 3
-     rounds);
+     the tick and the host loop in turns (host / tick / tick / host, one
+     round);
  10. kernel 5 (``paged_attention``) against its plain version on the
      captured inputs (bf16 at 3e-2, float32 at 2e-5 with TF32 off) and on
      a GQA + softcap case, then timed round-robin over the captured layers
@@ -104,7 +104,7 @@ Between 9 and 10, set sharding and the robustness layer, each path counted
      lane and sketch word, 2^18 requests); TTL at D = 2 equal to the
      unsharded TTL replay; overflow-defer at D = 8 (256 lanes a bucket)
      against the twin; the chunked sharded path at D = 4 (kernel 2 per
-     shard per chunk, 2^20 requests) equal to the resident one; the
+     shard per chunk, 2^19 requests) equal to the resident one; the
      sharded hierarchy (a private L1 of 512 x 16 per shard) at D = 2
      against kernel 4's plain version; then each D timed (ms per replay,
      requests/s, kernel 3's device ms per shard launch, the routing's ms);
@@ -127,12 +127,37 @@ Between 9 and 10, set sharding and the robustness layer, each path counted
      equal to an uninterrupted one; the checkpoint's bytes and its save
      and restore seconds.
 
+After 10, every model family (the deepseek-7b serving model freed):
+
+ 15. mixtral-8x22b at full width (d 6144, 48 x 128 heads, 8 KV heads, 8
+     experts top-2 as 16 virtual experts of d_ff 8192, vocab 32768), its
+     depth cut to 4 layers (56 are 282 GB), random from seed 0: a smoke
+     MoE prefill and paged decode on the card held to the CPU; the 16
+     requests through ``Engine.run`` on the ``cuda`` backend, counted
+     (kernel 5 4 x decode_steps times, kernel 1 ran), the ``torch``
+     backend's run equal; the tick (CUDA graphs, one capture per kind),
+     greedy and with the reference's sampler (temperature 0.8, seed 3,
+     decode_block 4), each held to the host loop under the same config
+     (stats, hit ratio, token counts and prefix hits equal; tokens equal,
+     or a bf16 tie at the first divergence in the host loop's own logits
+     plus that step's Gumbel noise); tokens/s host / tick / tick / host;
+     the decode tick's host ms and device ms (CUDA events over
+     back-to-back replays of its graph) beside its bytes bound (every
+     expert's weights: the dispatch is dense); then ``lm.forward``
+     against 8 ``decode_step``s at full width for mamba2-130m,
+     hymba-1.5b and seamless-m4t-large-v2 at full depth and mixtral at 4
+     layers: in bf16 greedy tokens equal or tied, on a float32 copy of
+     the weights every logit within 6e-2 (up to a MoE discontinuity: a
+     dropped pair, or other experts after a gate tie).
+
 Last, the paper-figure sweep (``repro_torch/eval``), each figure run with
 every launch counter and the sweep's capture counter set to 0 just before
 it and read just after:
 
- 15. every figure of ``eval.figures.FIGURES`` at ``quick=True`` on the card,
-     with the arguments of its committed baseline, artifacts under
+ 16. every figure of ``eval.figures.FIGURES`` at ``quick=True`` on the card,
+     with the arguments of its committed baseline (``throughput_shards``
+     at shards 1 and 4: its host-bound torch timing rows at 2 and 8 are
+     cut for time; every comparable record stays), artifacts under
      ``chiprun_out/eval/``: one CUDA-graph capture per torch shape group
      and one kernel-3 launch per ``cuda`` sweep point (checked); each of
      the 8 committed baselines gated by the port's ``compare_to_baseline``
@@ -185,13 +210,14 @@ PREFIX = 2**20
 #: TTL replay (smaller: the chunked twin scrubs the whole state per chunk)
 TTL_SETS, TTL_N, TTL_BATCH = 8192, 2**18, 1024
 #: TinyLFU: the paper pairs it with LFU (and LRU); ``for_capacity`` of the
-#: full-size cache never ages on this trace, so one more run ages 4 times
+#: full-size cache never ages on this trace, so one more run ages twice
 TL_POLICIES = ("LRU", "LFU")
 TL_AGING = dict(width=2**20, door_bits=2**21, sample=2**20)
-#: the TinyLFU runs after the first (LFU, aging) hold kernel 3 to the twin
-#: on the first TL_CUT_N requests: the chunked twin is host-bound (about
-#: 57 s a 2^22-request run on an H100 host); the aging run still ages twice
-TL_CUT_N = 2**21
+#: requests of the TinyLFU runs (LRU, LFU, aging) on which kernel 3 is
+#: held to the twin: the chunked twin is host-bound (57-75 s a
+#: 2^22-request run on an H100 host), so LRU and aging run half the trace
+#: (aging twice) and LFU a quarter
+TL_N = (2**21, 2**20, 2**21)
 #: hierarchy: the largest power-of-two L1 of 16 ways that fits one SM's
 #: shared memory with its expiry lane, over the full-size L2
 HIER_L1_SETS, HIER_L1_WAYS = 512, 16
@@ -204,9 +230,9 @@ HIER_GLOBAL_L1_SETS = 2 * HIER_L1_SETS
 #: kernel 4 on an aliasing-heavy hierarchy (L2 64 x 8 under L1 16 x 16:
 #: most rows it copies ahead are written by the lanes in between), held to
 #: its plain version on the first HIER_ALIAS_N requests of the trace
-HIER_ALIAS = dict(l2_sets=64, l1_sets=16, n=2**16)
-#: hierarchy TTL run: L2 8192 x 8, L1 64 x 16, ttl_churn 2^16 requests
-HIER_TTL_L1_SETS, HIER_TTL_N = 64, 2**16
+HIER_ALIAS = dict(l2_sets=64, l1_sets=16, n=2**15)
+#: hierarchy TTL run: L2 8192 x 8, L1 64 x 16, ttl_churn 2^15 requests
+HIER_TTL_L1_SETS, HIER_TTL_N = 64, 2**15
 #: kernel 3's skew check: SKEW_N requests of the trace, every other one
 #: replaced by the trace's first key (one set takes half of all lanes)
 SKEW_N = 2**20
@@ -233,7 +259,7 @@ SERVE_REQUESTS, SERVE_SHARED, SERVE_TAIL, SERVE_MAX_NEW = 16, 384, (16, 128), 32
 SERVE_CAPTURE_STEP = 31
 #: the profiled serving run: one wave of max_batch requests, fewer new
 #: tokens (the profiler's event processing grows with the op count)
-SERVE_PROFILE_MAX_NEW = 8
+SERVE_PROFILE_MAX_NEW = 4
 #: kernel 5's GQA + softcap case on random pools: gemma2-2b's heads
 GQA_CASE = dict(b=8, kvh=4, g=2, d=256, softcap=50.0, pages=1024, page=16,
                 pps=64)
@@ -814,15 +840,15 @@ def tl_runs():
 
 def phase_tinylfu_kernel(card, trace, dev, results):
     """Kernel 3's TinyLFU branch == the chunked torch twin, exactly, at full
-    size (the runs after the first on TL_CUT_N requests); the cuda chunked
-    path (kernel 1 peeks, kernel 2 probes) equals both on the first run."""
+    size on the first TL_N requests of each run; the cuda chunked path
+    (kernel 1 peeks, kernel 2 probes) equals both on the first run."""
     from repro_torch.core import router
     from repro_torch.core.backend import make_backend
     from repro_torch.core.kway import KWayConfig
 
     err = 0
     for k, (policy, tl, label) in enumerate(tl_runs()):
-        n = len(trace) if k == 0 else TL_CUT_N
+        n = TL_N[k]
         chunks, en = router.pad_chunks(trace[:n], BATCH)
         cfg = KWayConfig(num_sets=NUM_SETS, ways=WAYS, policy=policy)
         cb = make_backend("cuda", cfg, dev)
@@ -1606,16 +1632,111 @@ class CaptureStep:
         return self.kernel(q, k_pages, v_pages, page_table, seq_lens, **kw)
 
 
-def drive_engine(cfg, model, backend, prompts, dev, max_new=None, **kw):
+class SampleRecorder:
+    """Stands in for the engine module's ``_argmax`` / ``_sample_next``
+    during a host-loop run (``attach`` takes the engine): keeps the float32
+    logits behind every token, keyed by (request id, token index), with the
+    decode step and slot of each decode token (the Gumbel noise's key and
+    row).  The copies stay on the engine's device, so a timed run is not
+    held up by them."""
+
+    def __init__(self):
+        from repro_torch.serve import engine as teng
+        self.teng, self.engine = teng, None
+        self.prefill, self.decode = [], {}
+
+    def attach(self, eng):
+        self.engine = eng
+
+    def __enter__(self):
+        teng = self.teng
+        self.real = (teng._argmax, teng._sample_next)
+        real_argmax, real_sample = self.real
+
+        def argmax(logits):
+            if logits.dim() == 1:          # a host-loop prefill, in rid order
+                self.prefill.append(logits.float().clone())
+            return real_argmax(logits)
+
+        def sample(ecfg, logits, step):
+            lg = logits.float().clone()
+            for slot, r in enumerate(self.engine.slots):
+                if r is not None and not r.done:
+                    self.decode[(r.rid, len(r.generated))] = (lg, int(step),
+                                                              slot)
+            return real_sample(ecfg, logits, step)
+
+        teng._argmax, teng._sample_next = argmax, sample
+        return self
+
+    def __exit__(self, *exc):
+        self.teng._argmax, self.teng._sample_next = self.real
+
+    def scores_of(self, rid: int, i: int):
+        """What the host loop's token i of ``rid`` was the argmax of, on
+        the CPU: (the float32 logits, the scores, their scale) -- the
+        scores are the logits (a prefill's first token, or at temperature
+        0), else the logits over T plus the Gumbel noise of that decode
+        step and slot, scale 1/T."""
+        from repro_torch.core import prng
+        ecfg = self.engine.ecfg
+        if i == 0:
+            lg = self.prefill[rid].cpu()
+            return lg, lg, 1.0
+        lg, step, slot = self.decode[(rid, i)]
+        lg = lg.cpu()
+        if ecfg.temperature <= 0:
+            return lg[slot], lg[slot], 1.0
+        key = prng.fold_in(prng.prng_key(ecfg.sample_seed), step)
+        scores = lg / torch.full_like(lg, ecfg.temperature) \
+            + prng.gumbel(key, tuple(lg.shape))
+        return lg[slot], scores[slot], 1.0 / ecfg.temperature
+
+
+def check_tick_tokens(rec, host_reqs, tick_reqs):
+    """The tick's tokens against the host loop's (recorded by ``rec``),
+    one rule for every serving phase.  Per request: equal token counts and
+    prefix hits; tokens equal, or at the first divergence the two tokens
+    tie within 3e-2 (bf16: the tick prefills ``max_batch`` lanes at once,
+    the host loop one) in the scores the host loop drew that token from,
+    the tolerance scaled with them -> (requests equal throughout, the
+    largest gap at a divergence)."""
+    equal, gap = 0, 0.0
+    for rid, (htoks, _, hph) in host_reqs.items():
+        ttoks, tph = tick_reqs[rid]
+        if len(ttoks) != len(htoks) or tph != hph:
+            raise AssertionError(f"request {rid}: {len(ttoks)} tokens, "
+                                 f"{tph} prefix hits on the tick; "
+                                 f"{len(htoks)}, {hph} on the host loop")
+        diff = [i for i, (a, b) in enumerate(zip(htoks, ttoks)) if a != b]
+        if not diff:
+            equal += 1
+            continue
+        i = diff[0]
+        lg, score, scale = rec.scores_of(rid, i)
+        a, b = htoks[i], ttoks[i]
+        tol = (3e-2 + 3e-2 * abs(float(lg[a]))) * scale
+        d = float((score[a] - score[b]).abs())
+        if d > tol:
+            raise AssertionError(f"request {rid} token {i}: {a} (host loop) "
+                                 f"vs {b} (tick) is no bf16 tie: {d} > {tol}")
+        gap = max(gap, d)
+    return equal, gap
+
+
+def drive_engine(cfg, model, backend, prompts, dev, max_new=None,
+                 recorder=None, **kw):
     """Submit the prompts (``max_new`` None: SERVE_MAX_NEW), ``Engine.run``
-    on ``backend`` (the host loop; ``kw`` overrides SERVE_ENGINE) ->
-    (stats, {rid: (tokens, pages, prefix_hits)}, host seconds of run, hit
-    ratio)."""
+    on ``backend`` (the host loop; ``kw`` overrides SERVE_ENGINE; an
+    entered SampleRecorder ``recorder`` records the run) -> (stats, {rid:
+    (tokens, pages, prefix_hits)}, host seconds of run, hit ratio)."""
     from repro_torch.core.policies import Policy
     from repro_torch.serve.engine import Engine, EngineConfig
     eng = Engine(cfg, model, EngineConfig(policy=Policy.LRU, backend=backend,
                                           **dict(SERVE_ENGINE, **kw)),
                  device=dev)
+    if recorder is not None:
+        recorder.attach(eng)
     for p in prompts:
         eng.submit(p, max_new=max_new or SERVE_MAX_NEW)
     sync(dev)
@@ -1725,8 +1846,10 @@ def phase_serve_path(card, dev, results, serve):
               f" B) made on the card in {time.perf_counter() - t0:.1f} s")
     prompts = serve_traffic(cfg.vocab_size)
     reset_launch_counts()
-    with CaptureStep(cfg.num_layers, SERVE_CAPTURE_STEP) as cap:
-        st, reqs, wall, hr = drive_engine(cfg, model, "cuda", prompts, dev)
+    with CaptureStep(cfg.num_layers, SERVE_CAPTURE_STEP) as cap, \
+            SampleRecorder() as rec:
+        st, reqs, wall, hr = drive_engine(cfg, model, "cuda", prompts, dev,
+                                          recorder=rec)
     counts = launch_counts()
     want = cfg.num_layers * st["decode_steps"]
     if counts["paged_attention"] != want:
@@ -1747,7 +1870,7 @@ def phase_serve_path(card, dev, results, serve):
         raise AssertionError(f"served {len(reqs)} requests, stats {st}")
     n_tok = sum(len(t) for t, _, _ in reqs.values())
     serve.update(inputs=cap.inputs, stats=st, model=model,
-                 prompts=prompts, host=(st, reqs, wall, hr))
+                 prompts=prompts, host=(st, reqs, wall, hr), host_rec=rec)
     results["paged_attention"].update(
         serve_tokens=n_tok, serve_s=wall, serve_tokens_per_s=n_tok / wall,
         serve_hit_ratio=hr, serve_decode_steps=st["decode_steps"])
@@ -1770,7 +1893,7 @@ def phase_serve_path(card, dev, results, serve):
 
 
 #: the serving tick's timing: rounds of host loop / tick / tick / host loop
-SERVE_TICK_ROUNDS = 3
+SERVE_TICK_ROUNDS = 1
 #: device kernels of the tick, by a substring of their names in a trace
 TICK_KERNELS = {"kway_fused_probe": "fused_kernel",
                 "kway_probe": "probe_kernel",
@@ -1861,38 +1984,6 @@ def tick_rows(prof):
             and not getattr(ev, "is_user_annotation", False)]
 
 
-def check_tick_tokens(cfg, model, prompts, host_reqs, tick_reqs, dev):
-    """Per request: equal token counts and prefix hits; tokens equal, or
-    at the first divergence the two tokens tie within 3e-2 in the logits
-    of a prefill of the common prefix on the card (bf16: the tick prefills
-    8 lanes at once, the host loop one) -> (requests equal throughout,
-    the largest gap at a divergence)."""
-    from repro_torch.serve import paged_model as pm
-    equal, gap = 0, 0.0
-    for rid, (htoks, _, hph) in host_reqs.items():
-        ttoks, tph = tick_reqs[rid]
-        if len(ttoks) != len(htoks) or tph != hph:
-            raise AssertionError(f"request {rid}: {len(ttoks)} tokens, "
-                                 f"{tph} prefix hits on the tick; "
-                                 f"{len(htoks)}, {hph} on the host loop")
-        diff = [i for i, (a, b) in enumerate(zip(htoks, ttoks)) if a != b]
-        if not diff:
-            equal += 1
-            continue
-        i = diff[0]
-        seq = np.concatenate([prompts[rid], htoks[:i]]).astype(np.int32)
-        logits, _, _ = pm.prefill_padded(
-            cfg, model, torch.from_numpy(seq[None]).to(dev))
-        lg = logits[0].float().cpu()
-        a, b = htoks[i], ttoks[i]
-        d = float((lg[a] - lg[b]).abs())
-        if d > 3e-2 + 3e-2 * abs(float(lg[a])):
-            raise AssertionError(f"request {rid} token {i}: {a} (host loop)"
-                                 f" vs {b} (tick) is no bf16 tie: {d}")
-        gap = max(gap, d)
-    return equal, gap
-
-
 def profile_tick_wave(card, cfg, model, prompts, dev):
     """Where the tick's time goes: one wave (``max_batch`` requests,
     SERVE_PROFILE_MAX_NEW new tokens) run twice on fresh engines, first
@@ -1972,7 +2063,7 @@ def phase_serve_tick(card, dev, results, serve):
         gc.collect()
         torch.cuda.empty_cache()
 
-    def run_tick(label, host, **kw):
+    def run_tick(label, host, rec, **kw):
         st, reqs, wall, hr, info = drive_tick(cfg, model, prompts, dev,
                                               profiled=True, **kw)
         free()
@@ -1980,7 +2071,7 @@ def phase_serve_tick(card, dev, results, serve):
         if st != hst or hr != hhr:
             raise AssertionError(f"{label}: tick stats {st}, hit ratio "
                                  f"{hr!r}; host loop {hst}, {hhr!r}")
-        equal, gap = check_tick_tokens(cfg, model, prompts, hreqs, reqs, dev)
+        equal, gap = check_tick_tokens(rec, hreqs, reqs)
         n_tok = sum(len(t) for t, _ in reqs.values())
         # the Python launch counters move only at capture: the launches of
         # this checked run are each graph's launches at capture times its
@@ -2029,11 +2120,14 @@ def phase_serve_tick(card, dev, results, serve):
                        dict(decode_block=4)),
                       ("serving tick (tinylfu)", dict(tinylfu=True))):
         if kw:
-            host = drive_engine(cfg, model, "cuda", prompts, dev, **kw)
-            free()
+            with SampleRecorder() as rec:
+                host = drive_engine(cfg, model, "cuda", prompts, dev,
+                                    recorder=rec, **kw)
         else:
-            host = serve["host"]
-        info = run_tick(label, host, **kw)
+            host, rec = serve["host"], serve.pop("host_rec")
+        info = run_tick(label, host, rec, **kw)
+        del rec
+        free()
         if not kw:
             build_s = info["build_s"]
         counts.update(info["launches"])
@@ -2320,6 +2414,498 @@ def phase_paged_attention_timing(card, dev, results, serve):
 
 
 # ---------------------------------------------------------------------------
+# every model family: MoE serving at full width, the sampler, full-width
+# forward / decode consistency
+# ---------------------------------------------------------------------------
+
+#: the families phase's serving model: mixtral-8x22b at its full width, its
+#: depth cut from 56 to FAMILY_LAYERS layers (56 layers are 282 GB of bf16
+#: weights, 3.5 cards), random bf16 weights made on the card from seed 0,
+#: served on the serving cell's engine and traffic (SERVE_*)
+FAMILY_ARCH, FAMILY_LAYERS = "mixtral-8x22b", 4
+#: configs whose full-width forward is held to FAMILY_STEPS decode steps
+#: at full depth (and mixtral at FAMILY_LAYERS), at the reference's 6e-2;
+#: their bf16 drift is also measured on the host CPU, which sets the
+#: card's limit (not mixtral's: its 20.8 GB would have to be copied to the
+#: host and its dense expert products run there)
+FAMILY_CONSISTENCY = ("mamba2-130m", "hymba-1.5b", "seamless-m4t-large-v2")
+FAMILY_STEPS = 8
+#: the card's bf16 drift may be this many times the host CPU's, and a bf16
+#: decode this many times as far from its float32 run as the forward
+DRIFT_FACTOR = 1.5
+#: the sampled tick run (the reference's burst-sampled engine test's
+#: sampler at the cell's engine)
+FAMILY_SAMPLED = dict(temperature=0.8, sample_seed=3, decode_block=4)
+#: decode ticks timed, by host clock, then as back-to-back graph replays
+#: (after the admit tick's decode: 25 of the wave's 32 decode steps, so
+#: every lane stays active)
+FAMILY_TIMED_TICKS = 12
+#: rounds of host loop / tick / tick / host loop tokens/s
+FAMILY_ROUNDS = 1
+#: decode-graph replays under torch.profiler (after the timed ones; the
+#: lanes retire at the wave's 32nd decode step)
+FAMILY_PROFILED_TICKS = 4
+#: substrings of cuBLAS's and CUTLASS's matrix-product kernel names (the
+#: H100's cuBLAS names its bf16 kernels ``nvjet_*``)
+GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma")
+
+
+def family_config():
+    """The families phase's serving config (a hook for CPU rehearsals)."""
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(FAMILY_ARCH).config,
+                               num_layers=FAMILY_LAYERS)
+
+
+def family_consistency_configs():
+    """(label, config) of the full-width consistency checks (a hook for
+    CPU rehearsals)."""
+    from repro_torch import configs
+    return [(a, configs.get(a).config) for a in FAMILY_CONSISTENCY] + [
+        (f"{FAMILY_ARCH} ({FAMILY_LAYERS} layers)", family_config())]
+
+
+def decode_weight_bytes(model) -> int:
+    """Bytes of the weights one paged decode step reads: every block's
+    (all experts: the dispatch is dense) and the head (one embedding row
+    per token aside)."""
+    blocks = sum(p.numel() * p.element_size()
+                 for p in model.blocks.parameters())
+    head = model.head()
+    return blocks + head.numel() * head.element_size()
+
+
+def phase_family_agreement(card, dev):
+    """A small MoE input on the card agrees with the CPU: mixtral's smoke
+    config with ``moe_ff_shards=2`` (its full config's 16 virtual
+    experts' layout), one padded prefill and one paged decode step."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve import paged_model as pm
+
+    cfg = dataclasses.replace(configs.get(FAMILY_ARCH).smoke,
+                              moe_ff_shards=2)
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(2)
+    toks = np.zeros((3, 32), np.int32)
+    lengths = np.array([29, 11, 32], np.int32)
+    for i, n in enumerate(lengths):
+        toks[i, :n] = rng.integers(2, cfg.vocab_size - 1, n)
+    shape = (cfg.num_layers, cfg.num_kv_heads, 18, 8, cfg.hd)
+    pools = torch.from_numpy(rng.standard_normal((2,) + shape).astype(
+        np.float32)).bfloat16()
+    pt = torch.arange(18, dtype=torch.int32).reshape(3, 6)
+    out = []
+    for d in (cpu, dev):
+        model = lm.init_params(cfg, seed=0, device=cpu).to(d)
+        logits, _, _ = pm.prefill_padded(cfg, model,
+                                         torch.from_numpy(toks).to(d),
+                                         torch.from_numpy(lengths).to(d))
+        pk, pv = (t.clone().to(d) for t in pools)
+        dl, _, _ = pm.decode_paged(
+            cfg, model, torch.tensor([5, 7, 9], dtype=torch.int32, device=d),
+            torch.from_numpy(lengths).to(d), pk, pv, pt.to(d),
+            torch.ones(3, dtype=torch.bool, device=d))
+        out.append((logits.cpu(), dl.cpu()))
+    err = 0.0
+    for a, b in zip(*out):
+        if not torch.isfinite(b).all():
+            raise AssertionError("non-finite MoE logits on the card")
+        torch.testing.assert_close(b, a, atol=3e-2, rtol=3e-2)
+        err = max(err, float((a - b).abs().max()))
+    say(card, f"small MoE input agrees: {cfg.name} (moe_ff_shards=2) prefill"
+              f" and paged decode logits on the card vs CPU, max abs err "
+              f"{err:.3g} (tol 3e-2)")
+
+
+def consistency_run(cfg, model, toks, enc_embeds, dev, dtype):
+    """``lm.forward`` over the tokens and one ``lm.decode_step`` per token
+    from ``init_cache`` (caches in ``dtype``; an encoder-decoder's cross
+    caches filled from its encoder), each MoE layer's routing recorded ->
+    (forward logits, decode logits, both float32 [B, S, Vp]; the positions
+    before the first MoE discontinuity, and what it was; forward seconds,
+    seconds per decode step)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    b, s = toks.shape
+    kw = {} if enc_embeds is None else {"enc_embeds": enc_embeds.to(dtype)}
+    routes = {s: [], 1: []}
+    real_moe = L.moe
+
+    def moe(p, x, **mkw):
+        idx, _, _, keep, _ = L.moe_route(p, x, **mkw)
+        routes[x.shape[1]].append((idx.sort(-1).values.cpu(), keep.cpu()))
+        return real_moe(p, x, **mkw)
+
+    L.moe = moe
+    try:
+        sync(dev)
+        t0 = time.perf_counter()
+        full = lm.forward(cfg, model, toks, **kw).float()
+        sync(dev)
+        fwd_s = time.perf_counter() - t0
+        cache = lm.init_cache(cfg, b, 2 * s, dtype=dtype, device=dev)
+        if cfg.enc_layers:
+            enc = lm._encode(cfg, model, kw["enc_embeds"])
+            for li, block in enumerate(model.blocks):
+                k, v = L.cross_kv(block.cross, enc,
+                                  num_kv_heads=cfg.num_kv_heads,
+                                  head_dim=cfg.hd)
+                cache["cross_k"][li, :, :s] = k
+                cache["cross_v"][li, :, :s] = v
+            cache["cross_len"].fill_(s)
+        outs = []
+        sync(dev)
+        t0 = time.perf_counter()
+        for i in range(s):
+            logits, cache = lm.decode_step(
+                cfg, model, toks[:, i],
+                torch.full((b,), i, dtype=torch.int32, device=dev), cache)
+            outs.append(logits.float())
+        sync(dev)
+        dec_s = (time.perf_counter() - t0) / s
+    finally:
+        L.moe = real_moe
+    dec = torch.stack(outs, 1)
+    if not (torch.isfinite(full).all() and torch.isfinite(dec).all()):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    n, why = s, ""
+    layers = len(routes[s])
+    for li, (idx, keep) in enumerate(routes[s]):
+        for i in range(s):
+            didx = routes[1][i * layers + li][0][:, 0]
+            if i < n and not bool(keep[:, i].all()):
+                n, why = i, f"a pair dropped at position {i}, layer {li}"
+            if i < n and not torch.equal(didx, idx[:, i]):
+                n, why = i, f"other experts at position {i}, layer {li}"
+    if n < min(s, cfg.top_k * cfg.moe_ff_shards) and why.startswith("a pair"):
+        raise AssertionError(f"{cfg.name}: {why}: under the capacity floor")
+    return full, dec, n, why, fwd_s, dec_s
+
+
+def drift(full, dec) -> float:
+    """The largest relative error, over positions, of decode logits
+    against forward logits ([B, S, V] each, the same positions)."""
+    if not full.shape[1]:
+        return 0.0
+    return float(((dec - full).norm(dim=-1) / full.norm(dim=-1)).max())
+
+
+def family_consistency(card, label, cfg, model, dev, seed=0):
+    """``lm.forward`` over FAMILY_STEPS tokens (an encoder-decoder also
+    encodes FAMILY_STEPS stub frames into its cross caches) against
+    FAMILY_STEPS ``lm.decode_step``s from ``init_cache``, in bf16 (the
+    serving dtype) and on a float32 copy of the same weights.
+
+    float32, where the two paths must agree but for summation order: every
+    logit within the reference's 6e-2.  bf16, where the two paths round
+    differently (products of 16 rows and of 2): greedy tokens equal, or
+    tied within 6e-2 in the forward's logits; and the drift (relative
+    error of the decode's logits against the forward's) is held two ways.
+    (1) For the FAMILY_CONSISTENCY configs the same bf16 run on the host
+    CPU (the same code, on the reference's numerics: its bf16 drift equals
+    the reference's at smoke size, ``tests/test_torch_lm_families.py``)
+    sets the limit: the card's drift within DRIFT_FACTOR x the CPU's.
+    (2) Against the float32 run, the decode is no further from its float32
+    counterpart than DRIFT_FACTOR x the forward is from its: a fault of
+    the bf16 decode path alone would move the decode, not the forward.
+
+    A MoE layer is discontinuous where the two paths may part: the
+    forward drops (token, k) pairs past an expert's capacity, which the
+    one-token decode never does, and a near tie of two gates may route a
+    token to other experts.  Positions from the first token with a dropped
+    pair, or with other experts in any layer, on are left out (the first
+    ``top_k * ff_shards`` positions never drop).  Frees ``model`` (moved
+    and turned float32 in place)."""
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(seed)
+    b, s = 2, FAMILY_STEPS
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size - 1, (b, s))).to(
+        dev)
+    enc = None
+    if cfg.enc_layers:
+        enc = torch.from_numpy(rng.standard_normal(
+            (b, s, cfg.d_model)).astype(np.float32) * 0.02).to(dev)
+    params = sum(p.numel() for p in model.parameters())
+    runs, lines = {}, []
+    sides = [("card bf16", dev, torch.bfloat16)]
+    if label in FAMILY_CONSISTENCY:
+        sides.append(("host CPU bf16", cpu, torch.bfloat16))
+    sides.append(("card float32", dev, torch.float32))
+    for side, d, dtype in sides:
+        model.to(device=d, dtype=dtype)
+        full, dec, n, why, fwd_s, dec_s = consistency_run(
+            cfg, model, toks.to(d), None if enc is None else enc.to(d), d,
+            dtype)
+        full, dec = full.cpu(), dec.cpu()
+        runs[side] = (full, dec, n)
+        f, dd = full[:, :n], dec[:, :n]
+        top = f.argmax(-1, keepdim=True)
+        gap = (f.gather(-1, top) - f.gather(-1, dd.argmax(-1, keepdim=True))
+               ).abs()
+        if bool((gap > 6e-2 + 6e-2 * f.gather(-1, top).abs()).any()):
+            raise AssertionError(f"{label} ({side}): greedy tokens differ "
+                                 f"past a tie: gaps {gap.flatten()}")
+        if dtype == torch.float32:
+            torch.testing.assert_close(dd, f, atol=6e-2, rtol=6e-2)
+        diff = (f - dd).abs()
+        past = float((diff > 6e-2 + 6e-2 * f.abs()).float().mean()) \
+            if n else 0.0
+        lines.append(
+            f"{side}: forward over {s} tokens x {b} ({fwd_s * 1e3:.1f} ms), "
+            f"{s} decode_steps ({dec_s * 1e3:.2f} ms each), positions "
+            f"0-{n - 1}" + (f" ({why}: not compared on)" if why else "")
+            + f", greedy {int((top[..., 0] == dd.argmax(-1)).sum())}/"
+            f"{top.numel()} equal (the rest tied), max abs diff "
+            f"{float(diff.max()) if n else 0.0:.4g}, {past:.3%} of logits "
+            f"past 6e-2, drift {drift(f, dd):.4g}")
+    full, dec, n = runs["card bf16"]
+    on_card = drift(full[:, :n], dec[:, :n])
+    held = []
+    if "host CPU bf16" in runs:
+        cf, cd, cn = runs["host CPU bf16"]
+        host = drift(cf[:, :cn], cd[:, :cn])
+        if on_card > DRIFT_FACTOR * host:
+            raise AssertionError(f"{label}: bf16 drift {on_card:.4g} on the "
+                                 f"card > {DRIFT_FACTOR} x the host CPU's "
+                                 f"{host:.4g}")
+        held.append(f"card drift {on_card:.4g} <= {DRIFT_FACTOR} x the host"
+                    f" CPU's {host:.4g} (ratio "
+                    f"{on_card / host if host else 0.0:.3g})")
+    f32, d32, n32 = runs["card float32"]
+    m = min(n, n32)
+    to_fwd = drift(f32[:, :m], full[:, :m])
+    to_dec = drift(d32[:, :m], dec[:, :m])
+    if to_dec > DRIFT_FACTOR * to_fwd:
+        raise AssertionError(f"{label}: bf16 decode {to_dec:.4g} from its "
+                             f"float32 run, > {DRIFT_FACTOR} x the "
+                             f"forward's {to_fwd:.4g}")
+    held.append(f"bf16 vs float32 on positions 0-{m - 1}: decode "
+                f"{to_dec:.4g} <= {DRIFT_FACTOR} x forward {to_fwd:.4g} "
+                f"(ratio {to_dec / to_fwd if to_fwd else 0.0:.3g})")
+    say(card, f"{label} at full width ({cfg.num_layers} layers, d "
+              f"{cfg.d_model}, vocab {cfg.vocab_size}, {params} "
+              f"parameters), forward == decode: " + "; ".join(lines)
+        + "; held: " + "; ".join(held))
+
+
+def phase_families(card, dev, results, serve):
+    """Every model family at full width on the card.  The deepseek-7b
+    serving model of the phases above is freed first.  mixtral-8x22b at
+    full width and FAMILY_LAYERS layers: a smoke MoE input held to the
+    CPU; the 16 requests through ``Engine.run`` on the ``cuda`` backend,
+    counted (kernel 5 FAMILY_LAYERS x decode_steps times, kernel 1 ran),
+    the ``torch`` backend's run equal; the tick (CUDA graphs, one capture
+    per kind) greedy and sampled, each held to the host loop under the
+    same config; tokens/s of both modes in turns; the decode tick's ms
+    and device ms beside its bytes bound; then each family's forward held
+    to its decode at full width."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    serve.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    phase_family_agreement(card, dev)
+    cfg = family_config()
+    e = SERVE_ENGINE
+    n_bytes = 2 * cfg.param_count()
+    k = cfg.top_k * cfg.moe_ff_shards
+    cap = max(int(e["max_prompt"] * k * 1.25 / cfg.num_virtual_experts), k)
+    say(card, f"families config: {cfg.name} at full width, depth cut from "
+              f"{configs.get(FAMILY_ARCH).config.num_layers} to "
+              f"{cfg.num_layers} "
+              f"layers, d {cfg.d_model}, {cfg.num_heads} heads x {cfg.hd} "
+              f"({cfg.num_kv_heads} KV heads), {cfg.num_experts} experts "
+              f"top-{cfg.top_k}, moe_ff_shards {cfg.moe_ff_shards} "
+              f"({cfg.num_virtual_experts} virtual experts of d_ff "
+              f"{cfg.virtual_d_ff}), vocab {cfg.vocab_size}: "
+              f"{cfg.param_count()} parameters ({n_bytes} B bf16), random "
+              f"from torch.Generator seed 0; engine and traffic of the "
+              f"serving cell (SERVE_*); prefill capacity {cap} per virtual "
+              f"expert per row, decode {k}")
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, seed=0, device=dev)
+    sync(dev)
+    say(card, f"families model made on the card in "
+              f"{time.perf_counter() - t0:.1f} s; peak device memory "
+              f"{torch.cuda.max_memory_allocated()} B")
+    prompts = serve_traffic(cfg.vocab_size)
+    vp = lm.padded_vocab(cfg)
+
+    # the host loop, counted, with the logits behind every token recorded
+    reset_launch_counts()
+    with SampleRecorder() as rec:
+        st, reqs, wall, hr = drive_engine(cfg, model, "cuda", prompts, dev,
+                                          recorder=rec)
+    counts = launch_counts()
+    if counts["paged_attention"] != cfg.num_layers * st["decode_steps"]:
+        raise AssertionError(f"families: paged_attention launched "
+                             f"{counts['paged_attention']} times, not "
+                             f"{cfg.num_layers} x {st['decode_steps']}")
+    check_launches(card, "families serving", ("kway_probe",
+                                             "paged_attention"), results)
+    for rid, (toks, _, _) in reqs.items():
+        if len(toks) != SERVE_MAX_NEW + 1 or not all(0 <= t < vp
+                                                    for t in toks):
+            raise AssertionError(f"families request {rid}: tokens {toks}")
+    if len(reqs) != SERVE_REQUESTS or st["prefills"] != SERVE_REQUESTS:
+        raise AssertionError(f"families: served {len(reqs)}, stats {st}")
+    n_tok = sum(len(t) for t, _, _ in reqs.values())
+    say(card, f"families serving (host loop, cuda backend): {len(reqs)} "
+              f"requests, {n_tok} tokens in {wall:.3f} s host wall "
+              f"({n_tok / wall:.1f} tokens/s, logits recorded), hit ratio "
+              f"{hr!r}, stats {st}")
+    st2, reqs2, wall2, _ = drive_engine(cfg, model, "torch", prompts, dev)
+    if (st2, reqs2) != (st, reqs):
+        bad = [rid for rid in reqs if reqs[rid] != reqs2.get(rid)]
+        raise AssertionError(f"families: torch backend run differs: stats "
+                             f"{st2} vs {st}; requests {bad}")
+    say(card, f"families: torch backend run == cuda backend run: stats, "
+              f"pages, prefix hits and tokens of all {len(reqs)} requests "
+              f"({wall2:.3f} s host wall)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the tick, greedy and sampled, each against the host loop
+    runs = {"": (st, reqs, hr, rec)}
+    tick_counts = Counter()
+    for label, kw in (("greedy", {}), ("sampled", FAMILY_SAMPLED)):
+        if kw:
+            with SampleRecorder() as srec:
+                hst, hreqs, _, hhr = drive_engine(
+                    cfg, model, "cuda", prompts, dev, recorder=srec, **kw)
+            runs[label] = (hst, hreqs, hhr, srec)
+        else:
+            runs[label] = runs[""]
+        hst, hreqs, hhr, hrec = runs[label]
+        tst, treqs, twall, thr, info = drive_tick(cfg, model, prompts, dev,
+                                                  **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if tst != hst or thr != hhr:
+            raise AssertionError(f"families tick ({label}): stats {tst}, "
+                                 f"hit ratio {thr!r}; host loop {hst}, "
+                                 f"{hhr!r}")
+        equal, gap = check_tick_tokens(hrec, hreqs, treqs)
+        burst = kw.get("decode_block", 1) * sum(info["ticks"].values())
+        lanes = e["max_batch"] * info["ticks"].get("admit", 0)
+        want = {"paged_attention": cfg.num_layers * burst,
+                "kway_fused_probe": lanes, "kway_probe": 0}
+        if info["launches"] != want:
+            raise AssertionError(f"families tick ({label}): launches "
+                                 f"{info['launches']}, want {want}")
+        tick_counts.update(info["launches"])
+        say(card, f"families tick ({label}{', ' if kw else ''}"
+                  f"{', '.join(f'{k}={v}' for k, v in kw.items())}): == host "
+                  f"loop in stats {tst}, hit ratio {thr!r}, token counts and "
+                  f"prefix hits; {equal} of {len(treqs)} requests' tokens "
+                  f"equal, the rest diverge at a bf16 tie (largest gap "
+                  f"{gap:.4g}); ticks {info['ticks']}, one capture per kind, "
+                  f"warm-up + capture {info['build_s']:.2f} s, launches "
+                  f"(each graph's at capture x its replays) "
+                  f"{info['launches']}")
+    for name, c in tick_counts.items():
+        results[name]["launches"] = results[name].get("launches", 0) + c
+    del runs, rec
+
+    # tokens/s in turns, then the decode tick beside its bound
+    tps = {"host": [], "tick": []}
+    for r in range(FAMILY_ROUNDS):
+        for side in ("host", "tick", "tick", "host"):
+            if side == "host":
+                _, rq, w, _ = drive_engine(cfg, model, "cuda", prompts, dev)
+            else:
+                _, rq, w, _, _ = drive_tick(cfg, model, prompts, dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+            n = sum(len(t[0]) for t in rq.values())
+            tps[side].append(n / w)
+            say(card, f"families timing round {r + 1}, {side}: {n} tokens in "
+                      f"{w:.4f} s = {n / w:.2f} tokens/s")
+    eng, _, _ = build_tick(cfg, model, dev)
+    for p in prompts[:e["max_batch"]]:
+        eng.submit(p, max_new=SERVE_MAX_NEW)
+    eng.step()                                   # the admit tick
+    host = []
+    for _ in range(FAMILY_TIMED_TICKS):
+        sync(dev)
+        t0 = time.perf_counter()
+        eng.step()
+        host.append((time.perf_counter() - t0) * 1e3)
+    if eng.ticks.get("decode", 0) != FAMILY_TIMED_TICKS:
+        raise AssertionError(f"families: timed ticks {dict(eng.ticks)}")
+    # the replays' mean K/V length: each replay adds one token a lane
+    kv_tokens = int(eng._state.pos.sum()) + e["max_batch"] * (
+        FAMILY_TIMED_TICKS + 1) // 2
+    graph = eng._graphs["decode"]
+    with torch.cuda.stream(eng._stream):
+        device_ms = cuda_ms(graph.replay, FAMILY_TIMED_TICKS, warmup=False)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with torch.cuda.stream(eng._stream):
+            for _ in range(FAMILY_PROFILED_TICKS):
+                graph.replay()
+        sync(dev)
+    rows = tick_rows(prof)
+    busy = sum(t for _, _, t in rows) / 1e3 / FAMILY_PROFILED_TICKS
+    gemm = sum(t for k, _, t in rows if any(
+        g in k.lower() for g in GEMM_NAMES)) / 1e3 / FAMILY_PROFILED_TICKS
+    top = ", ".join(f"{k[:44]} x{c // FAMILY_PROFILED_TICKS} "
+                    f"{t / 1e3 / FAMILY_PROFILED_TICKS:.3f} ms"
+                    for k, c, t in sorted(rows, key=lambda r: -r[2])[:6])
+    say(card, f"families decode tick under torch.profiler "
+              f"({FAMILY_PROFILED_TICKS} replays): "
+              f"{sum(c for _, c, _ in rows) / FAMILY_PROFILED_TICKS:.0f} "
+              f"device kernels and {busy:.3f} ms device busy a tick, of it "
+              f"{gemm:.3f} ms in GEMM kernels (names with "
+              f"{' / '.join(GEMM_NAMES)}); top: {top}")
+    kv_bytes = 2 * cfg.num_layers * kv_tokens * cfg.num_kv_heads * cfg.hd * 2
+    w_bytes = decode_weight_bytes(model)
+    bound = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    tick_ms = statistics.median(host)
+    peak = torch.cuda.max_memory_allocated()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    med = {k: statistics.median(v) for k, v in tps.items()}
+    say(card, f"families serving tokens/s ({FAMILY_ROUNDS} round of host / "
+              f"tick / tick / host): tick {tps['tick']}, host loop "
+              f"{tps['host']}")
+    say(card, f"families decode tick ({e['max_batch']} lanes, "
+              f"{cfg.num_layers} layers): {tick_ms:.3f} ms host wall (median "
+              f"of {FAMILY_TIMED_TICKS}, each ending in its one sync), "
+              f"{device_ms:.3f} ms device (CUDA events over "
+              f"{FAMILY_TIMED_TICKS} back-to-back replays of the decode "
+              f"graph); bound {bound:.3f} ms = ({w_bytes} B of weights, all "
+              f"{cfg.num_virtual_experts} virtual experts (dense dispatch) "
+              f"and the head, + {kv_bytes} B of K/V over {kv_tokens} "
+              f"tokens, the replays' mean) / 3.35 TB/s = "
+              f"{bound / device_ms:.1%} of the device "
+              f"time; peak device memory {peak} B")
+    results["paged_attention"].update(
+        families_host_tokens_per_s=med["host"],
+        families_tick_tokens_per_s=med["tick"],
+        families_decode_tick_ms=tick_ms, families_decode_device_ms=device_ms,
+        families_decode_bound_ms=bound, families_decode_profiled_ms=busy,
+        families_decode_gemm_ms=gemm, families_peak_bytes=peak)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # each family's forward against its decode at full width
+    for label, fcfg in family_consistency_configs():
+        fmodel = lm.init_params(fcfg, seed=0, device=dev)
+        family_consistency(card, label, fcfg, fmodel, dev)
+        del fmodel
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # set sharding and the robustness layer
 # ---------------------------------------------------------------------------
 
@@ -2328,7 +2914,7 @@ SHARD_COUNTS = (1, 2, 4, 8)
 #: requests of the checks against the sharded torch twin on the card
 SHARD_TWIN_N = 2**18
 #: requests of the chunked sharded path (kernel 2 per shard per chunk)
-SHARD_CHUNKED_N = 2**20
+SHARD_CHUNKED_N = 2**19
 #: overflow-defer: D = 8 shards, 256 and 128 lanes a bucket (a chunk of
 #: 1024 lanes; on this trace no bucket passes 256, and 128 defers)
 SHARD_DEFER = dict(shards=8, capacities=(256, 128))
@@ -2898,7 +3484,10 @@ def phase_robust_serve(card, dev, results, serve):
 
 EVAL_OUT = os.path.join(HERE, "chiprun_out", "eval")
 #: each figure of the port's FIGURES with the arguments its committed
-#: baseline's spec records (None: no committed baseline, the defaults)
+#: baseline's spec records (None: no committed baseline, the defaults);
+#: throughput_shards at shards (1, 4), not the spec's (1, 2, 4, 8): its
+#: torch rows are host-bound (about 45 s a shard count), and its
+#: comparable records are the hit ratios at shards 1 and 4
 EVAL_RUNS = (
     ("hit_ratio", "quick.json", {"backends": ("torch", "cuda")}),
     ("sampled_vs_limited", None, {}),
@@ -2908,7 +3497,7 @@ EVAL_RUNS = (
     ("throughput_resident", "BENCH_throughput_resident_quick.json",
      {"backends": ("torch", "cuda")}),
     ("throughput_shards", "BENCH_throughput_vs_shards_quick.json",
-     {"shards": (1, 2, 4, 8)}),
+     {"shards": (1, 4)}),
     ("showdown", "BENCH_showdown_quick.json", {}),
     ("synthetic_mix", None, {}),
     ("serving", None, {}),
@@ -3179,6 +3768,7 @@ def main() -> int:
             (phase_robust_serve, (dev, results, serve)),
             (phase_paged_attention_kernel, (dev, results, serve)),
             (phase_paged_attention_timing, (dev, results, serve)),
+            (phase_families, (dev, results, serve)),
             (phase_eval, (dev, results))):
         t0 = time.perf_counter()
         phase(card, *args)
@@ -3201,7 +3791,7 @@ def main() -> int:
                         "split_us", "scale_ms", "scale_device_ms",
                         "scale_phases")
                or k.startswith(("full_", "serve_", "gqa_", "max_abs_err_",
-                                "eval_",
+                                "eval_", "families_",
                                 "layer0_", "global_", "bucket_", "skew_",
                                 "narrow_", "ops_", "sharded_"))}})
     print("kernels " + ", ".join(

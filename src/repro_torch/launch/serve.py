@@ -11,7 +11,10 @@ Counterpart of ``repro/launch/serve.py`` with the same flags and traffic
 ``--seed``).  ``--jitted`` runs the device-resident serving tick instead
 of the host loop: on the card two CUDA graphs (admit, decode) replayed
 with one host sync per tick, on the CPU the same body run eagerly;
-``--decode-block`` sets the decode burst both modes schedule.
+``--decode-block`` sets the decode burst both modes schedule.  The MoE
+archs (mixtral, dbrx) are served by the paged engine like the dense ones;
+the SSM and encoder-decoder archs (and hymba, whose SSD heads the
+reference's CLI excludes too) print the reference's message and exit 0.
 """
 from __future__ import annotations
 

@@ -1,14 +1,24 @@
-"""The decoder-only LM of the port: parameters as ``nn.Module``s.
+"""The LM of the port, every family of the reference: parameters as
+``nn.Module``s, the full-sequence forward and the single-token decode.
 
-Counterpart of ``repro/models/lm.py`` for the dense configs (no experts,
-no SSM, no encoder): one ``Block`` module per layer and the ``LM`` module
-around them.  The reference stacks each layer's parameters on a leading L
-axis; ``params_from_numpy`` / ``params_to_numpy`` convert between that
-tree (as numpy arrays) and the modules, so a test can run both packages on
-the same weights.  Weights are bf16, norm scales float32 (zeros: the norms
-scale by ``1 + w``).  The full-sequence forward the serving path needs is
-``serve/paged_model.py``; ``forward`` / ``decode_step`` / ``init_cache``
-are still to port.
+Counterpart of ``repro/models/lm.py``: a decoder-only transformer (dense,
+MoE, sliding-window, local/global with softcaps), pure SSM (mamba2),
+hybrid parallel attention + SSM heads (hymba, mean-fused), an
+encoder-decoder (the seamless backbone, encoder over stub frame
+embeddings) and a prefix-embedding VLM (the internvl backbone).  One
+``Block`` module per layer holds the parts its config has (``attn``,
+``ssm``, ``cross`` + ``ln_cross``, ``moe`` or ``mlp``); the encoder's
+blocks are ``Block``s too.  The reference stacks each layer's parameters
+on a leading L axis; ``params_from_numpy`` / ``params_to_numpy`` convert
+between that tree (as numpy arrays) and the modules, so a test can run
+both packages on the same weights.  Weights are bf16; the MoE router, the
+SSD's ``A_log`` / ``D`` / ``dt_bias`` / ``norm`` and the norm scales are
+float32 (the norms scale by ``1 + w``).
+
+Numerics follow the reference as XLA compiles its layer loop: a bf16 op
+whose result is cast straight to float32 keeps its float32 value (the
+residual sum that a norm reads), every other bf16 op rounds.  The paged
+serving path is ``serve/paged_model.py``.
 """
 from __future__ import annotations
 
@@ -19,20 +29,25 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.layers import SSMDims
 
 VOCAB_ALIGN = 256
 
-#: The reference layer families the port does not carry yet.
-MOE_TODO = ("MoE layers are not ported yet (ROADMAP Queue A item 12: "
-            "models/layers.py moe)")
-SSM_TODO = ("SSM (Mamba2 SSD) layers are not ported yet (ROADMAP Queue A "
-            "item 12: models/layers.py ssd_scan)")
-ENCDEC_TODO = ("encoder-decoder models are not ported yet (ROADMAP Queue "
-               "A item 12)")
+#: parts of a block whose leaves stay float32 (the rest are bf16)
+F32_LEAVES = {"moe": ("router",), "ssm": ("A_log", "D", "dt_bias", "norm")}
+#: a block's parts that hold weight dicts, in the order the port draws them
+PARTS = ("attn", "ssm", "cross", "moe", "mlp")
+#: a block's norm scales (float32 vectors)
+NORMS = ("ln1", "ln2", "ln_cross")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
     return (cfg.vocab_size + VOCAB_ALIGN - 1) // VOCAB_ALIGN * VOCAB_ALIGN
+
+
+def ssm_dims(cfg: ModelConfig) -> SSMDims:
+    return SSMDims.from_config(cfg.d_model, cfg.ssm_state, cfg.ssm_expand,
+                               cfg.ssm_head_dim, cfg.ssm_conv)
 
 
 def layer_windows(cfg: ModelConfig) -> list[int]:
@@ -43,68 +58,146 @@ def layer_windows(cfg: ModelConfig) -> list[int]:
     return [cfg.sliding_window] * cfg.num_layers
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise ValueError for a config whose layers the port does not have."""
-    if cfg.is_moe:
-        raise ValueError(f"{cfg.name}: {MOE_TODO}")
-    if cfg.has_ssm:
-        raise ValueError(f"{cfg.name}: {SSM_TODO}")
-    if cfg.enc_layers > 0:
-        raise ValueError(f"{cfg.name}: {ENCDEC_TODO}")
-    if not cfg.has_attention:
-        raise ValueError(f"{cfg.name}: an attention-free config")
-
-
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def _bf16_scale(cfg: ModelConfig) -> float:
+    """``scale_emb`` rounded to bf16, as the reference multiplies (a Python
+    float keeps the host free of a device copy)."""
+    return float(torch.tensor(cfg.scale_emb, dtype=torch.bfloat16))
+
+
 class Block(nn.Module):
-    """One decoder layer: RMSNorm -> GQA attention -> RMSNorm -> gated MLP,
-    each with a residual add."""
+    """One layer: RMSNorm -> the token mixer (GQA attention, SSD heads, or
+    both averaged) -> [RMSNorm -> cross attention] -> RMSNorm -> gated MLP
+    or MoE, each with a residual add.  A part the config lacks is None."""
 
     def __init__(self, tensors: dict):
         super().__init__()
-        self.ln1 = _param(tensors["ln1"])
-        self.ln2 = _param(tensors["ln2"])
-        self.attn = nn.ParameterDict(
-            {k: _param(v) for k, v in tensors["attn"].items()})
-        self.mlp = nn.ParameterDict(
-            {k: _param(v) for k, v in tensors["mlp"].items()})
+        for name in NORMS:
+            t = tensors.get(name)
+            setattr(self, name, None if t is None else _param(t))
+        for name in PARTS:
+            part = tensors.get(name)
+            setattr(self, name, None if part is None else nn.ParameterDict(
+                {k: _param(v) for k, v in part.items()}))
 
-    def prefill(self, cfg: ModelConfig, x, positions, window: int):
-        """Full-sequence block -> (x', (k, v) [B, S, KVH, D])."""
-        h = L.rms_norm(x, self.ln1, cfg.norm_eps)
-        a, kv = L.attention(
-            self.attn, h, positions, num_heads=cfg.num_heads,
+    def _attend(self, cfg, h, positions, window, mask=None):
+        return L.attention(
+            self.attn, h, positions, mask, num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
             rope_theta=cfg.rope_theta, softcap=cfg.attn_softcap,
             window=window)
-        return self.residual_mlp(cfg, x, a), kv
+
+    def ffn(self, cfg: ModelConfig, h):
+        """The MoE or the gated MLP of this layer on normed ``h``."""
+        if self.moe is not None:
+            return L.moe(self.moe, h, num_experts=cfg.num_experts,
+                         top_k=cfg.top_k, ff_shards=cfg.moe_ff_shards)
+        return L.mlp(self.mlp, h)
 
     def residual_mlp(self, cfg: ModelConfig, x, a):
-        """x + a, then + mlp(rms_norm(x + a)).  The norm reads the float32
-        sum x + a before its bf16 rounding, and the residual the rounded
-        sum: the numerics of the reference as XLA compiles it (it keeps
-        the sum in float32 for the norm that consumes it)."""
-        xm = x.float() + a.float()
-        h2 = L.rms_norm(xm, self.ln2, cfg.norm_eps, dtype=x.dtype)
-        return xm.to(x.dtype) + L.mlp(self.mlp, h2)
+        """x + a, then + ffn(rms_norm(x + a)) (the paged decode's tail)."""
+        return self._ffn_residual(cfg, x.float() + a.float(), x.dtype)
+
+    def _cross_residual(self, cfg, xm, dtype, attend):
+        """The cross-attention sublayer on the float32 sum ``xm`` ->
+        the next float32 sum."""
+        hc = L.rms_norm(xm, self.ln_cross, cfg.norm_eps, dtype=dtype)
+        return xm.to(dtype).float() + attend(hc).float()
+
+    def seq(self, cfg: ModelConfig, x, positions, window: int,
+            enc_out=None, enc_mask=None):
+        """The block over a full sequence (prefill, training) -> (x', the
+        roped K and V [B, S, KVH, D] of its attention, or None)."""
+        h = L.rms_norm(x, self.ln1, cfg.norm_eps)
+        mix, kv = None, None
+        if self.attn is not None:
+            mix, kv = self._attend(cfg, h, positions, window)
+        if self.ssm is not None:
+            y, _ = L.ssd_scan(self.ssm, h, ssm_dims(cfg))
+            mix = y if mix is None else mix + y
+        if self.attn is not None and self.ssm is not None:
+            mix = mix * 0.5                # hymba: mean-fused parallel heads
+        xm = x.float() + mix.float()
+        if self.cross is not None:
+            kvc = L.cross_kv(self.cross, enc_out,
+                             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd)
+            xm = self._cross_residual(cfg, xm, x.dtype, lambda hc: L.attention(
+                self.cross, hc, positions, enc_mask, kv=kvc,
+                num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+                use_rope=False)[0])
+        return self._ffn_residual(cfg, xm, x.dtype), kv
+
+    def _ffn_residual(self, cfg, xm, dtype):
+        """The float32 residual sum ``xm`` -> x' in ``dtype``: + the ffn of
+        its norm, if the layer has one.  The norm reads ``xm`` before its
+        rounding, the residual the rounded sum: the reference as XLA
+        compiles it keeps a sum that a norm consumes in float32."""
+        if self.moe is None and self.mlp is None:
+            return xm.to(dtype)
+        h2 = L.rms_norm(xm, self.ln2, cfg.norm_eps, dtype=dtype)
+        return xm.to(dtype) + self.ffn(cfg, h2)
+
+    def encode(self, cfg: ModelConfig, x, positions, mask):
+        """An encoder block: bidirectional attention under ``mask``, then
+        the gated MLP."""
+        h = L.rms_norm(x, self.ln1, cfg.norm_eps)
+        a, _ = self._attend(cfg, h, positions, 0, mask)
+        return self._ffn_residual(cfg, x.float() + a.float(), x.dtype)
+
+    def decode(self, cfg: ModelConfig, x, pos, window: int, ck=None,
+               cv=None, cssm=None, cconv=None, xk=None, xv=None, xlen=None):
+        """The block for one token against read-only caches (attend, then
+        the caller appends) -> (x', k_new, v_new, ssm state, conv state)."""
+        h = L.rms_norm(x, self.ln1, cfg.norm_eps)
+        mix = k_new = v_new = None
+        if self.attn is not None:
+            k_new, v_new = L.project_kv_step(
+                self.attn, h, pos, num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.hd, rope_theta=cfg.rope_theta)
+            mix = L.decode_attention(
+                self.attn, h, pos, ck, cv, num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
+                rope_theta=cfg.rope_theta, softcap=cfg.attn_softcap,
+                window=window, kv_new=(k_new, v_new))
+        if self.ssm is not None:
+            y, (cssm, cconv) = L.ssd_step(self.ssm, h, (cssm, cconv),
+                                          ssm_dims(cfg))
+            mix = y if mix is None else mix + y
+        if self.attn is not None and self.ssm is not None:
+            mix = mix * 0.5
+        xm = x.float() + mix.float()
+        if self.cross is not None:
+            xm = self._cross_residual(
+                cfg, xm, x.dtype, lambda hc: L.decode_attention(
+                    self.cross, hc, pos, xk, xv, num_heads=cfg.num_heads,
+                    num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
+                    rope_theta=cfg.rope_theta, is_cross=True,
+                    cross_len=xlen))
+        return self._ffn_residual(cfg, xm, x.dtype), k_new, v_new, cssm, \
+            cconv
 
 
 class LM(nn.Module):
     """Embedding, ``num_layers`` blocks, final norm and head (tied to the
-    embedding when ``cfg.tie_embeddings``)."""
+    embedding when ``cfg.tie_embeddings``); an encoder-decoder config adds
+    ``enc_layers`` encoder blocks and their final norm."""
 
     def __init__(self, cfg: ModelConfig, tensors: dict):
         super().__init__()
-        check_dense(cfg)
         self.cfg = cfg
         self.embed = _param(tensors["embed"])
         self.blocks = nn.ModuleList(Block(b) for b in tensors["blocks"])
         self.final_norm = _param(tensors["final_norm"])
         self.lm_head = (None if cfg.tie_embeddings
                         else _param(tensors["lm_head"]))
+        self.enc_blocks = nn.ModuleList(
+            Block(b) for b in tensors.get("enc_blocks", ()))
+        self.enc_norm = (_param(tensors["enc_norm"])
+                         if "enc_norm" in tensors else None)
 
     @property
     def device(self) -> torch.device:
@@ -115,35 +208,86 @@ class LM(nn.Module):
         return self.embed.T if self.lm_head is None else self.lm_head
 
 
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def _block_shapes(cfg: ModelConfig, cross: bool) -> dict:
+    """{part: {leaf: (shape, in_axis)}} of one block, in draw order."""
+    d, hd = cfg.d_model, cfg.hd
+    attn = {"wq": ((d, cfg.num_heads * hd), 0),
+            "wk": ((d, cfg.num_kv_heads * hd), 0),
+            "wv": ((d, cfg.num_kv_heads * hd), 0),
+            "wo": ((cfg.num_heads * hd, d), 0)}
+    parts = {}
+    if cfg.has_attention:
+        parts["attn"] = attn
+    if cfg.has_ssm:
+        dims = ssm_dims(cfg)
+        zxbcdt = 2 * dims.d_inner + 2 * dims.state + dims.nheads
+        parts["ssm"] = {
+            "in_proj": ((d, zxbcdt), 0),
+            "conv_w": ((dims.conv, dims.d_inner + 2 * dims.state), 0),
+            "out_proj": ((dims.d_inner, d), 0)}
+    if cross:
+        parts["cross"] = dict(attn)
+    if cfg.is_moe:
+        ev, ffv = cfg.num_virtual_experts, cfg.virtual_d_ff
+        parts["moe"] = {"router": ((d, cfg.num_experts), 0),
+                        "wi": ((ev, d, ffv), 1), "wg": ((ev, d, ffv), 1),
+                        "wo": ((ev, ffv, d), 1)}
+    elif cfg.d_ff > 0:
+        parts["mlp"] = {"wi": ((d, cfg.d_ff), 0), "wg": ((d, cfg.d_ff), 0),
+                        "wo": ((cfg.d_ff, d), 0)}
+    return parts
+
+
+def _dtype(part: str, leaf: str):
+    return (torch.float32 if leaf in F32_LEAVES.get(part, ())
+            else torch.bfloat16)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
-    """Random weights for a dense config, drawn on ``device`` (None: the
-    card) from a ``torch.Generator`` seeded with ``seed``.  The draws differ
-    from the reference's ``jax.random`` ones; ``params_from_numpy`` carries
-    the reference's weights instead."""
-    check_dense(cfg)
+    """Random weights for any config, drawn on ``device`` (None: the card)
+    from a ``torch.Generator`` seeded with ``seed``: dense weights normal x
+    fan_in^-0.5, norms and ``dt_bias`` / ``A_log`` zeros, ``D`` ones, as
+    the reference initialises them.  The draws differ from the reference's
+    ``jax.random`` ones; ``params_from_numpy`` carries the reference's
+    weights instead."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
-    vp = padded_vocab(cfg)
+    d = cfg.d_model
 
-    def w(*shape, in_axis=0):
-        return L.dense_init(gen, shape, in_axis=in_axis, device=dev)
+    def vec(fill=0.0, n=d):
+        return torch.full((n,), fill, dtype=torch.float32, device=dev)
 
-    def zeros():
-        return torch.zeros(d, dtype=torch.float32, device=dev)
+    def block(cross):
+        t = {"ln1": vec(), "ln2": vec()}
+        for part, leaves in _block_shapes(cfg, cross).items():
+            t[part] = {
+                leaf: L.dense_init(gen, shape, in_axis=ax,
+                                   dtype=_dtype(part, leaf), device=dev)
+                for leaf, (shape, ax) in leaves.items()}
+        if cfg.has_ssm:
+            nh = ssm_dims(cfg).nheads
+            t["ssm"].update(A_log=vec(0.0, nh), D=vec(1.0, nh),
+                            dt_bias=vec(0.0, nh),
+                            norm=vec(0.0, ssm_dims(cfg).d_inner))
+        if cross:
+            t["ln_cross"] = vec()
+        return t
 
-    blocks = [{
-        "ln1": zeros(), "ln2": zeros(),
-        "attn": {"wq": w(d, cfg.num_heads * hd),
-                 "wk": w(d, cfg.num_kv_heads * hd),
-                 "wv": w(d, cfg.num_kv_heads * hd),
-                 "wo": w(cfg.num_heads * hd, d)},
-        "mlp": {"wi": w(d, f), "wg": w(d, f), "wo": w(f, d)},
-    } for _ in range(cfg.num_layers)]
-    tensors = {"embed": w(vp, d, in_axis=1), "blocks": blocks,
-               "final_norm": zeros()}
+    encdec = cfg.enc_layers > 0
+    tensors = {"blocks": [block(encdec) for _ in range(cfg.num_layers)]}
+    tensors["embed"] = L.dense_init(gen, (padded_vocab(cfg), d), in_axis=1,
+                                    device=dev)
+    tensors["final_norm"] = vec()
     if not cfg.tie_embeddings:
-        tensors["lm_head"] = w(d, vp)
+        tensors["lm_head"] = L.dense_init(gen, (d, padded_vocab(cfg)),
+                                          device=dev)
+    if encdec:
+        tensors["enc_blocks"] = [block(False) for _ in range(cfg.enc_layers)]
+        tensors["enc_norm"] = vec()
     return LM(cfg, tensors)
 
 
@@ -157,24 +301,55 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+def _blocks_from_numpy(stacked: dict, n: int, dev) -> list:
+    out = []
+    for i in range(n):
+        t = {}
+        for name, leaf in stacked.items():
+            if isinstance(leaf, dict):
+                t[name] = {k: _tensor(v[i], _dtype(name, k), dev)
+                           for k, v in leaf.items()}
+            else:
+                t[name] = _tensor(leaf[i], torch.float32, dev)
+        out.append(t)
+    return out
+
+
 def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> LM:
     """The reference's parameter tree (numpy leaves, per-layer leaves
     stacked on a leading L axis) -> ``LM`` on ``device`` (None: the card).
-    Weights become bf16 and norm scales float32, as in the reference."""
+    The router and the SSD's float32 leaves and the norm scales stay
+    float32, every other weight becomes bf16, as in the reference."""
     dev = resolve_device(device)
     bf, f32 = torch.bfloat16, torch.float32
-    blk = tree["blocks"]
-    blocks = [{
-        "ln1": _tensor(blk["ln1"][i], f32, dev),
-        "ln2": _tensor(blk["ln2"][i], f32, dev),
-        "attn": {k: _tensor(v[i], bf, dev) for k, v in blk["attn"].items()},
-        "mlp": {k: _tensor(v[i], bf, dev) for k, v in blk["mlp"].items()},
-    } for i in range(cfg.num_layers)]
-    tensors = {"embed": _tensor(tree["embed"], bf, dev), "blocks": blocks,
+    tensors = {"embed": _tensor(tree["embed"], bf, dev),
+               "blocks": _blocks_from_numpy(tree["blocks"], cfg.num_layers,
+                                            dev),
                "final_norm": _tensor(tree["final_norm"], f32, dev)}
     if not cfg.tie_embeddings:
         tensors["lm_head"] = _tensor(tree["lm_head"], bf, dev)
+    if "enc_blocks" in tree:
+        tensors["enc_blocks"] = _blocks_from_numpy(tree["enc_blocks"],
+                                                   cfg.enc_layers, dev)
+        tensors["enc_norm"] = _tensor(tree["enc_norm"], f32, dev)
     return LM(cfg, tensors)
+
+
+def _blocks_to_numpy(blocks) -> dict:
+    def a(t):
+        return t.detach().float().cpu().numpy()
+
+    b0 = blocks[0]
+    tree = {}
+    for name in NORMS:
+        if getattr(b0, name) is not None:
+            tree[name] = np.stack([a(getattr(b, name)) for b in blocks])
+    for name in PARTS:
+        if getattr(b0, name) is not None:
+            tree[name] = {k: np.stack([a(getattr(b, name)[k])
+                                       for b in blocks])
+                          for k in getattr(b0, name)}
+    return tree
 
 
 def params_to_numpy(model: LM) -> dict:
@@ -183,19 +358,136 @@ def params_to_numpy(model: LM) -> dict:
     def a(t):
         return t.detach().float().cpu().numpy()
 
-    def stack(get):
-        return np.stack([a(get(b)) for b in model.blocks])
-
-    b0 = model.blocks[0]
-    tree = {
-        "embed": a(model.embed),
-        "blocks": {
-            "ln1": stack(lambda b: b.ln1), "ln2": stack(lambda b: b.ln2),
-            "attn": {k: stack(lambda b, k=k: b.attn[k]) for k in b0.attn},
-            "mlp": {k: stack(lambda b, k=k: b.mlp[k]) for k in b0.mlp},
-        },
-        "final_norm": a(model.final_norm),
-    }
+    tree = {"embed": a(model.embed),
+            "blocks": _blocks_to_numpy(model.blocks),
+            "final_norm": a(model.final_norm)}
     if model.lm_head is not None:
         tree["lm_head"] = a(model.lm_head)
+    if len(model.enc_blocks):
+        tree["enc_blocks"] = _blocks_to_numpy(model.enc_blocks)
+        tree["enc_norm"] = a(model.enc_norm)
     return tree
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward
+# ---------------------------------------------------------------------------
+
+def _head_logits(cfg: ModelConfig, model: LM, x) -> torch.Tensor:
+    """Final norm, head and final softcap -> bf16 logits, as the
+    reference's ``forward`` / ``decode_step`` return them."""
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    logits = x @ model.head()
+    if cfg.final_softcap > 0:
+        lf = logits.float()
+        logits = (torch.tanh(lf / cfg.final_softcap)
+                  * cfg.final_softcap).to(logits.dtype)
+    return logits
+
+
+def _encode(cfg: ModelConfig, model: LM, enc_embeds) -> torch.Tensor:
+    """Bidirectional encoder over stub frame embeddings [B, T, d]."""
+    t = enc_embeds.shape[1]
+    pos = torch.arange(t, dtype=torch.int32, device=enc_embeds.device)[None]
+    full = torch.ones((1, t, t), dtype=torch.bool, device=enc_embeds.device)
+    x = enc_embeds
+    for block in model.enc_blocks:
+        x = block.encode(cfg, x, pos, full)
+    return L.rms_norm(x, model.enc_norm, cfg.norm_eps)
+
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, model: LM, tokens, prefix_embeds=None,
+            enc_embeds=None) -> torch.Tensor:
+    """Logits [B, S, padded_vocab] (bf16) over the full sequence: the
+    ``prefix_embeds`` [B, P, d] (the VLM stub) then the tokens [B, S_tok];
+    an encoder-decoder config encodes ``enc_embeds`` [B, T_enc, d] (the
+    audio stub) and cross-attends to it from every decoder block."""
+    x = model.embed[tokens.long()] * _bf16_scale(cfg)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
+    enc_out = enc_mask = None
+    if cfg.enc_layers > 0:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder forward needs "
+                             "enc_embeds")
+        enc_out = _encode(cfg, model, enc_embeds)
+        enc_mask = torch.ones((1, s, enc_out.shape[1]), dtype=torch.bool,
+                              device=x.device)
+    for block, window in zip(model.blocks, layer_windows(cfg)):
+        x, _ = block.seq(cfg, x, positions, window, enc_out, enc_mask)
+    return _head_logits(cfg, model, x)
+
+
+# ---------------------------------------------------------------------------
+# decode: one new token against the caches
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """The decode state, on ``device`` (None: the card): K/V [L, B, T, KVH,
+    D]; the SSD state [L, B, nh, hp, N] float32 and conv state [L, B, k-1,
+    C]; cross K/V [L, B, max_seq // 2, KVH, D] with ``cross_len`` [B]."""
+    dev = resolve_device(device)
+    cache = {}
+    if cfg.has_attention:
+        shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.hd)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    if cfg.has_ssm:
+        d = ssm_dims(cfg)
+        cache["ssm"] = torch.zeros(
+            (cfg.num_layers, batch, d.nheads, d.head_dim, d.state),
+            dtype=torch.float32, device=dev)
+        cache["conv"] = torch.zeros(
+            (cfg.num_layers, batch, d.conv - 1, d.d_inner + 2 * d.state),
+            dtype=dtype, device=dev)
+    if cfg.enc_layers > 0:
+        enc_t = max_seq // 2
+        kv = (cfg.num_layers, batch, enc_t, cfg.num_kv_heads, cfg.hd)
+        cache["cross_k"] = torch.zeros(kv, dtype=dtype, device=dev)
+        cache["cross_v"] = torch.zeros(kv, dtype=dtype, device=dev)
+        cache["cross_len"] = torch.full((batch,), enc_t, dtype=torch.int32,
+                                        device=dev)
+    return cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, model: LM, token, pos, cache: dict):
+    """One serve step: ``token`` int [B] at positions ``pos`` int [B] (==
+    the length so far) against ``cache`` -> (logits [B, padded_vocab]
+    bf16, the cache).  The layers only read the K/V cache; the new
+    tokens' K/V are appended after the layer loop (a position past the
+    cache writes nothing), and the SSD states replaced.  The cache's
+    tensors are updated in place and returned in a new dict."""
+    x = (model.embed[token.long()] * _bf16_scale(cfg))[:, None, :]
+    windows = layer_windows(cfg)
+    news = []
+    for li, block in enumerate(model.blocks):
+        def at(name):
+            return cache[name][li] if name in cache else None
+
+        x, k_new, v_new, cssm, cconv = block.decode(
+            cfg, x, pos, windows[li], at("k"), at("v"), at("ssm"),
+            at("conv"), at("cross_k"), at("cross_v"), cache.get("cross_len"))
+        news.append((k_new, v_new, cssm, cconv))
+    logits = _head_logits(cfg, model, x)[:, 0]
+    new_cache = dict(cache)
+    if cfg.has_attention:
+        t = cache["k"].shape[2]
+        b = token.shape[0]
+        lanes = torch.arange(b, device=x.device)
+        at_pos = pos.long().clamp(0, t - 1)
+        inside = (pos.long() < t)[None, :, None, None]
+        for name, j in (("k", 0), ("v", 1)):
+            c = cache[name]
+            new = torch.stack([n[j][:, 0] for n in news])    # [L, B, KVH, D]
+            c[:, lanes, at_pos] = torch.where(inside, new.to(c.dtype),
+                                              c[:, lanes, at_pos])
+    if cfg.has_ssm:
+        for li, (_, _, cssm, cconv) in enumerate(news):
+            cache["ssm"][li] = cssm
+            cache["conv"][li] = cconv
+    return logits, new_cache

@@ -42,8 +42,13 @@ the host loop's prefix cache is a ``core/sharded.py`` ``ShardedCache``
 (global slot ids, routing on the device); the tick refuses it, as the
 reference does.
 
-Not ported yet, and refused with a ``ValueError`` naming the ROADMAP item:
-temperature sampling, and models with experts or SSM layers.
+The engine serves every decoder-only config with attention (dense, MoE,
+hybrid), as the reference's does.  Decode tokens are greedy at
+``temperature <= 0``; otherwise each step draws the reference's own
+``jax.random.categorical`` sample (``core/prng.py``: the same threefry
+words, keyed on ``sample_seed`` and the ``decode_steps`` counter, which the
+tick reads on the device), so both modes sample the reference's tokens.
+The prefill's first token is always the argmax.
 """
 from __future__ import annotations
 
@@ -61,6 +66,7 @@ from repro_torch.core import hashing
 from repro_torch.core.hashing import key_tensor, prefix_block_hashes
 from repro_torch.core.kway import KWayConfig, KWayState
 from repro_torch.core.policies import Policy
+from repro_torch.core import prng
 from repro_torch.kernels import kway_probe as kprobe
 from repro_torch.kernels import paged_attention as kpa
 from repro_torch.models import lm
@@ -68,10 +74,6 @@ from repro_torch.robust import events
 from repro_torch.robust.watchdog import watch
 from repro_torch.serve import paged_model as pm
 
-TEMPERATURE_TODO = ("temperature sampling is not ported yet (ROADMAP Queue "
-                    "A item 12b: jax.random.categorical has no bit-equal "
-                    "torch counterpart, so the sampler needs its own "
-                    "design); use temperature=0 (greedy)")
 UNSHARDED = ("jitted engine requires an unsharded prefix cache (shards == "
              "1); the sharded path is host-loop only")
 
@@ -138,8 +140,11 @@ class EngineConfig:
     # the padded prefill (0: max_seq).  Must be a multiple of ``page``;
     # longer prompts are rejected at submit().
     max_prompt: int = 0
-    # 0: greedy decode (argmax).  > 0 would sample: not ported yet (refused)
+    # 0: greedy decode (argmax).  > 0: softmax sampling at this temperature,
+    # seeded from (sample_seed, decode_step) identically in both modes.  The
+    # prefill's first token is always argmax.
     temperature: float = 0.0
+    sample_seed: int = 0
     # Decode steps per engine step (multi-step scheduling): admit, then
     # ``decode_block`` decodes; page allocation order, and so out-of-page
     # retirement, follows this schedule.  The tick runs the whole burst
@@ -159,9 +164,27 @@ def _launch_counts() -> Counter:
     return Counter({**kprobe.LAUNCHES, **kpa.LAUNCHES})
 
 
-def _sample_next(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy next token: argmax, ties to the first index."""
+def _argmax(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy token: argmax, ties to the first index."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _sample_next(ecfg: EngineConfig, logits: torch.Tensor,
+                 decode_step) -> torch.Tensor:
+    """Next decode token, shared by both modes: the argmax at
+    ``temperature <= 0``, else the reference's ``categorical(fold_in(
+    PRNGKey(sample_seed), decode_step), logits / temperature)``.
+    ``decode_step`` is an int (the host loop's counter) or a 0-d device
+    tensor (the tick's), read with no host sync."""
+    if ecfg.temperature <= 0.0:
+        return _argmax(logits)
+    key = prng.fold_in(prng.prng_key(ecfg.sample_seed), decode_step,
+                       device=logits.device)
+    # a tensor divisor: IEEE division by float32(temperature) on any device
+    # (a Python scalar may become a product by its reciprocal)
+    scaled = logits.float() / torch.full_like(logits, ecfg.temperature,
+                                              dtype=torch.float32)
+    return prng.categorical(key, scaled).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -319,7 +342,7 @@ def _prefill_tiles(cfg, ecfg, model, st, toks, length, admitted, pre_hits,
         for src, pool in ((ks, st.pool_k), (vs, st.pool_v)):
             kt = torch.where(tmask, src[:, rows, idx], 0)
             pool[:, :, tgt] = kt.movedim(3, 1)
-        toks0.append(torch.where(adm_t, _sample_next(logits), 0))
+        toks0.append(torch.where(adm_t, _argmax(logits), 0))
     return torch.cat(toks0)
 
 
@@ -358,7 +381,7 @@ def _decode_burst(cfg, ecfg, model, st, shared, active, pos, n_gen, max_new,
         posv = torch.where(active, pos, 0)
         logits, clash = pm.decode_paged_sink(cfg, model, tok, posv, st.pool_k,
                                              st.pool_v, page_tbl, active)
-        nxt = _sample_next(logits)
+        nxt = _sample_next(ecfg, logits, decode_steps)
         pos = torch.where(active, pos + 1, pos)
         n_gen = torch.where(active, n_gen + 1, n_gen)
         last_tok = torch.where(active, nxt, last_tok)
@@ -493,9 +516,6 @@ class Engine:
                 f"({ecfg.max_seq})")
         if ecfg.jitted and ecfg.shards > 1:
             raise ValueError(UNSHARDED)
-        if ecfg.temperature > 0.0:
-            raise ValueError(TEMPERATURE_TODO)
-        lm.check_dense(cfg)
         self.device = resolve_device(device)
         self.kcfg = KWayConfig(num_sets=ecfg.num_sets, ways=ecfg.ways,
                                policy=ecfg.policy)
@@ -850,7 +870,7 @@ class Engine:
         req.pages = pages
         req.pos = ntok
         req.slot = slot
-        req.generated.append(int(_sample_next(logits[0])))
+        req.generated.append(int(_argmax(logits[0])))
         return True
 
     def _page_table(self):
@@ -892,7 +912,8 @@ class Engine:
             self.cfg, self.model, torch.from_numpy(tok).to(dev),
             torch.from_numpy(pos).to(dev), self.pool_k, self.pool_v,
             torch.from_numpy(pt).to(dev), torch.from_numpy(active).to(dev))
-        nxt = _sample_next(logits).cpu().numpy()
+        nxt = _sample_next(self.ecfg, logits,
+                           self._stats["decode_steps"]).cpu().numpy()
         self._stats["decode_steps"] += 1
         for i, req in enumerate(self.slots):
             if req is None or req.done:

@@ -25,7 +25,12 @@ contiguous [KVH, P, page, D] slice kernel 5 reads.  Unlike the reference
 out of bounds (dropped by its scatter) are masked out or sent to the sink,
 never clamped.  The decode attends globally on every layer, as the
 reference does: it ignores the sliding window (gemma2's local layers),
-which the prefill honours.
+which the prefill honours.  A config with experts runs ``layers.moe`` in
+place of the MLP in both (its dispatch is fixed-shape, with a sink row for
+dropped pairs, so the tick's graphs capture it).  For hymba the prefill
+runs the block's SSD heads beside attention, as the reference's does
+through ``lm._block_seq``, while the decode runs attention alone (the
+reference's paged decode has no SSD state): a quirk copied as it is.
 """
 from __future__ import annotations
 
@@ -66,7 +71,7 @@ def prefill_padded(cfg: ModelConfig, model: lm.LM, tokens, length=None):
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
     ks, vs = [], []
     for block, window in zip(model.blocks, lm.layer_windows(cfg)):
-        x, (k, v) = block.prefill(cfg, x, positions, window)
+        x, (k, v) = block.seq(cfg, x, positions, window)
         ks.append(k)
         vs.append(v)
     if length is None:

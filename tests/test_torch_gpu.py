@@ -1044,3 +1044,123 @@ def test_eval_cuda_point_is_one_kernel3_launch(cuda, adm):
     assert sum(krp.trace_counts().values()) == 1
     by = {r["backend"]: r["value"] for r in recs}
     assert by["cuda"] == by["torch"]
+
+
+# ---------------------------------------------------------------------------
+# every model family and the sampler on the card
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("mixtral-8x22b", "dbrx-132b", "hymba-1.5b", "internvl2-2b",
+                "seamless-m4t-large-v2", "stablelm-3b", "gemma2-2b",
+                "minicpm-2b", "deepseek-7b", "mamba2-130m")
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_forward_and_decode_on_the_card_match_the_cpu(cuda, arch):
+    """The smoke config's ``forward`` (with its frontend stubs) and three
+    ``decode_step``s on the card, logits within 3e-2 of the same model on
+    the CPU (bf16 products sum in another order there)."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = configs.get(arch).smoke
+    cpu = torch.device("cpu")
+    model = lm.init_params(cfg, seed=4, device=cpu)
+    r = np.random.default_rng(5)
+    b, s = 2, 16
+    kw, s_tok = {}, s
+    if cfg.frontend == "patch":
+        s_tok -= cfg.frontend_len
+        kw["prefix_embeds"] = torch.from_numpy(r.standard_normal(
+            (b, cfg.frontend_len, cfg.d_model)) * 0.02).bfloat16()
+    if cfg.enc_layers:
+        s_tok //= 2
+        kw["enc_embeds"] = torch.from_numpy(r.standard_normal(
+            (b, s - s_tok, cfg.d_model)) * 0.02).bfloat16()
+    toks = torch.from_numpy(r.integers(2, cfg.vocab_size, (b, s_tok)))
+    outs = []
+    for dev in (cpu, cuda):
+        m = model.to(dev)
+        logits = [lm.forward(cfg, m, toks.to(dev),
+                             **{k: v.to(dev) for k, v in kw.items()})]
+        cache = lm.init_cache(cfg, b, 32, device=dev)
+        for i in range(3):
+            step, cache = lm.decode_step(
+                cfg, m, toks[:, i].to(dev),
+                torch.full((b,), i, dtype=torch.int32, device=dev), cache)
+            logits.append(step)
+        outs.append([t.float().cpu() for t in logits])
+    for want, got in zip(*outs):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+
+
+def test_sampler_bits_on_the_card_equal_the_cpu(cuda):
+    """The threefry words, uniforms and sampled tokens on the card equal
+    the CPU's (the draw is integer work; the tokens come from the same
+    uniforms and logits), with the step as a device counter."""
+    from repro_torch.core import prng
+    from repro_torch.serve import engine as teng
+    for step in (0, 7, 2**31 - 1):
+        keys = [prng.fold_in(prng.prng_key(3), torch.tensor(
+            step, dtype=torch.int32, device=d)) for d in ("cpu", cuda)]
+        assert torch.equal(keys[1].cpu(), keys[0])
+        assert torch.equal(prng.random_bits(keys[1], (8, 1000)).cpu(),
+                           prng.random_bits(keys[0], (8, 1000)))
+        assert torch.equal(prng.uniform(keys[1], (8, 1000)).cpu(),
+                           prng.uniform(keys[0], (8, 1000)))
+    ecfg = teng.EngineConfig(temperature=0.8, sample_seed=3)
+    r = np.random.default_rng(6)
+    for step in range(16):
+        logits = torch.from_numpy((r.standard_normal((8, 512)) * 3).astype(
+            np.float32))
+        want = teng._sample_next(ecfg, logits, step)
+        got = teng._sample_next(ecfg, logits.to(cuda), torch.tensor(
+            step, dtype=torch.int32, device=cuda))
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(temperature=0.8, sample_seed=3,
+                                             decode_block=4)],
+                         ids=["greedy", "sampled-burst"])
+def test_moe_tick_on_the_card_matches_the_host_loop(cuda, kw):
+    """mixtral's smoke config (``moe_ff_shards=2``) served by the tick's
+    CUDA graphs (the MoE dispatch captured: no host sync) and by the host
+    loop on the card: stats, hit ratio, token counts and prefix hits equal,
+    and the tokens by ``chip_smoke.py``'s rule (equal, or a bf16 tie at the
+    first divergence in the scores the host loop drew from), one capture
+    per kind."""
+    import dataclasses
+    import os
+    import sys
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve import engine as teng
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    cfg = dataclasses.replace(configs.get("mixtral-8x22b").smoke,
+                              moe_ff_shards=2)
+    model = lm.init_params(cfg, seed=0, device=cuda)
+    prompts = _tick_prompts(cfg.vocab_size, 9, seed=3)
+    teng.reset_capture_counts()
+    runs, rec = {}, chip_smoke.SampleRecorder()
+    for jitted in (True, False):
+        eng = teng.Engine(cfg, model, teng.EngineConfig(
+            **dict(TICK_BASE, jitted=jitted, **kw)), device=cuda)
+        for p in prompts:
+            eng.submit(p, max_new=6)
+        if jitted:
+            fin = eng.run()
+        else:          # the host loop, its logits recorded
+            rec.attach(eng)
+            with rec:
+                fin = eng.run()
+        runs[jitted] = (eng.stats, eng.hit_ratio(), {
+            rid: (r.generated, r.pages, r.prefix_hits)
+            for rid, r in fin.items()})
+    assert all(v == 1 for v in teng.capture_counts().values())
+    (tst, thr, treqs), (hst, hhr, hreqs) = runs[True], runs[False]
+    assert (tst, thr) == (hst, hhr)
+    assert sorted(treqs) == sorted(hreqs) == list(range(len(prompts)))
+    chip_smoke.check_tick_tokens(rec, hreqs, {
+        rid: (toks, hits) for rid, (toks, _, hits) in treqs.items()})

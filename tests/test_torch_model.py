@@ -177,11 +177,15 @@ def test_prefill_logits_and_kv_match_reference(arch):
 
 
 def test_dense_only():
-    """Configs with experts, SSM layers or an encoder are refused."""
-    for name, match in (("mixtral-8x22b", "MoE"), ("hymba-1.5b", "SSM"),
-                        ("seamless-m4t-large-v2", "encoder-decoder")):
-        with pytest.raises(ValueError, match=match):
-            lm.init_params(configs.get(name).smoke, device="cpu")
+    """Every family builds now (experts, SSM layers, an encoder), not the
+    dense configs alone; the draw is the seed's, the same twice, with the
+    reference's dtypes (bf16 weights, float32 norms, router and SSD
+    scalars)."""
+    for name, part in (("mixtral-8x22b", "moe"), ("hymba-1.5b", "ssm"),
+                       ("seamless-m4t-large-v2", "cross")):
+        model = lm.init_params(configs.get(name).smoke, device="cpu")
+        assert getattr(model.blocks[0], part) is not None
+    assert len(model.enc_blocks) == configs.get(name).smoke.enc_layers
     model = lm.init_params(configs.get("deepseek-7b").smoke, seed=3,
                            device="cpu")
     again = lm.init_params(configs.get("deepseek-7b").smoke, seed=3,
@@ -190,3 +194,6 @@ def test_dense_only():
                                                  again.parameters()))
     assert model.embed.dtype == torch.bfloat16
     assert model.final_norm.dtype == torch.float32
+    moe = lm.init_params(configs.get("mixtral-8x22b").smoke, device="cpu")
+    assert moe.blocks[0].moe["router"].dtype == torch.float32
+    assert moe.blocks[0].moe["wi"].dtype == torch.bfloat16

@@ -10,9 +10,9 @@
     module of ``repro`` (checked in a subprocess and in the sources);
   * ``chip_smoke.py`` fails, and prints no result, without a card;
   * the serving engine keeps the reference's refusals (the jitted tick
-    needs a traceable backend and an unsharded cache) and refuses what is
-    not ported yet (temperature sampling, MoE and SSM layers) with the
-    ROADMAP item.
+    needs a traceable backend and an unsharded cache; attention-free and
+    encoder-decoder models) and nothing more: temperature sampling (ROADMAP
+    Queue A item 12b) and MoE and hybrid models, ported now, run.
 """
 import ast
 import os
@@ -247,7 +247,8 @@ def _jserve_cfg(arch="deepseek-7b"):
 @pytest.mark.parametrize("ecfg_kw,match", [
     (dict(jitted=True, backend="ref"), "traceable"),
     (dict(jitted=True, shards=2), "unsharded"),
-    (dict(temperature=0.7), "Queue A item 12"),
+    pytest.param(dict(temperature=0.7, sample_seed=5), None,
+                 id="ecfg_kw2-Queue A item 12"),
     pytest.param(dict(shards=2), None, id="ecfg_kw3-Queue A item 8"),
     (dict(max_seq=100, page=16), "multiple of page"),
     (dict(decode_block=0), "decode_block"),
@@ -255,10 +256,11 @@ def _jserve_cfg(arch="deepseek-7b"):
     (dict(max_prompt=1024, max_seq=512), "max_prompt"),
 ])
 def test_engine_refusals(ecfg_kw, match):
-    """The reference's own refusals, and the options not ported yet, raise
-    ValueError before the model is touched.  ``shards > 1`` (ROADMAP Queue
-    A item 8, ``match`` None) is ported: the host loop runs it and equals
-    the reference engine's run in stats, pages and prefix hits."""
+    """The reference's own refusals raise ValueError before the model is
+    touched.  ``shards > 1`` (ROADMAP Queue A item 8) and temperature
+    sampling (item 12b), ``match`` None, are ported: the host loop runs
+    them and equals the reference engine's run in stats, pages and prefix
+    hits, and the sampled run in tokens too."""
     from repro_torch.serve.engine import Engine, EngineConfig
     if match is None:
         import jax
@@ -282,8 +284,9 @@ def test_engine_refusals(ecfg_kw, match):
                 eng.submit(np.concatenate([shared, r.integers(2, 400, n)]),
                            max_new=2)
             fin = eng.run()
-            runs.append((eng.stats, {i: (q.pages, q.prefix_hits)
-                                     for i, q in fin.items()}))
+            runs.append((eng.stats, {i: (q.pages, q.prefix_hits) + (
+                (list(q.generated),) if "temperature" in ecfg_kw else ())
+                for i, q in fin.items()}))
         assert runs[0] == runs[1] and runs[0][0]["prefix_hits"] > 0
         return
     with pytest.raises(ValueError, match=match):
@@ -293,9 +296,23 @@ def test_engine_refusals(ecfg_kw, match):
 @pytest.mark.parametrize("arch,match", [
     ("mamba2-130m", "decoder-only attention"),
     ("seamless-m4t-large-v2", "decoder-only attention"),
-    ("mixtral-8x22b", "MoE"), ("hymba-1.5b", "SSM")])
+    pytest.param("mixtral-8x22b", None, id="mixtral-8x22b-MoE"),
+    pytest.param("hymba-1.5b", None, id="hymba-1.5b-SSM")])
 def test_engine_refuses_unported_layers(arch, match):
+    """The engine refuses what the reference's refuses (no attention, an
+    encoder) and serves MoE and hybrid models (``match`` None), which it
+    refused before they were ported."""
+    from repro_torch.models import lm
     from repro_torch.serve.engine import Engine, EngineConfig
+    if match is None:
+        cfg = _serve_cfg(arch)
+        eng = Engine(cfg, lm.init_params(cfg, device="cpu"),
+                     EngineConfig(page=8, num_sets=4, ways=2, max_batch=2,
+                                  max_seq=64), device="cpu")
+        eng.submit(np.arange(2, 21, dtype=np.int32), max_new=3)
+        (req,) = eng.run().values()
+        assert len(req.generated) == 4
+        return
     with pytest.raises(ValueError, match=match):
         Engine(_serve_cfg(arch), None, EngineConfig(), device="cpu")
 
