@@ -18,20 +18,23 @@ serving slice:
      one ``ops.fused_probe`` call with torch.profiler (it must be 1);
   3. holds kernel 3 (``replay_resident``) to the chunked torch twin and to
      the ``cuda`` backend's chunked path (kernel 2 + torch apply): per-chunk
-     hits and evictions and the final state, exactly; LRU at full size,
-     HYPERBOLIC on the first 2^20 requests, and a TTL replay; then the skew
+     hits and evictions and the final state, exactly; LRU on the first
+     2^21 requests (the main path holds the whole trace's resident run to
+     the chunked path), HYPERBOLIC on the first 2^20, and a TTL replay;
+     then the skew
      check: 2^20 requests of which every other one is the same key, held
      exactly to the twin;
   4. holds kernel 3's TinyLFU branch to the chunked torch twin (record ->
-     peek -> admit -> access) at full size, LRU over the first 2^21
-     requests, LFU and a run whose sample ages the sketch twice over the
-     first 2^20: per-chunk counts, final state and final sketch, exactly;
+     peek -> admit -> access) at full size, LRU over the first 2^20
+     requests, LFU over the first 2^19 and a run whose sample (2^20) ages
+     the sketch twice over the first 2^21: per-chunk counts, final state and final sketch,
+     exactly;
      the ``cuda`` chunked path (kernel 1 peeks, kernel 2 probes) equals
      both on the LRU run;
   5. holds kernel 4 (``replay_hierarchical``) to its plain version
      (``hierarchy.replay_l1_over_l2``, run on CPU tensors) over the first
      2^14 requests against the full-size L2 filled by a 2^20-request flat
-     prefix, LRU and HYPERBOLIC, a TTL run, and 2^15 requests through an
+     prefix, LRU and HYPERBOLIC, a TTL run, and 2^14 requests through an
      aliasing-heavy hierarchy (L2 64 x 8 under L1 16 x 16, where most L2
      rows the kernel copies ahead are written before they are used):
      per-chunk counts and both tiers, exactly;
@@ -101,7 +104,7 @@ Between 9 and 10, set sharding and the robustness layer, each path counted
      and the global view's keys and vals equal to the unsharded kernel-3
      run) and ``replay_batched(shards=4)``; HYPERBOLIC and per-shard
      TinyLFU at D = 4 against the sharded torch twin on the card (every
-     lane and sketch word, 2^18 requests); TTL at D = 2 equal to the
+     lane and sketch word, 2^17 requests); TTL at D = 2 equal to the
      unsharded TTL replay; overflow-defer at D = 8 (256 lanes a bucket)
      against the twin; the chunked sharded path at D = 4 (kernel 2 per
      shard per chunk, 2^19 requests) equal to the resident one; the
@@ -110,7 +113,7 @@ Between 9 and 10, set sharding and the robustness layer, each path counted
      requests/s, kernel 3's device ms per shard launch, the routing's ms);
  12. sharded serving: ``EngineConfig(shards=D)``, D = 2 and 4, the host
      loop at deepseek-7b's width, equal to ``shards=1`` in tokens, stats,
-     hit ratio and evictions; tokens/s of D = 1, 2, 4 in turns;
+     hit ratio and evictions; tokens/s of D = 1, 2, 4, one run each;
  13. the robustness layer: ``check_cache`` clean on the main path's final
      state; ``flip_bit`` at each site, ``stale_entry``, ``clock_skew`` and
      ``double_resident`` detected at their set / way, ``scrub`` on the card
@@ -150,11 +153,33 @@ After 10, every model family (the deepseek-7b serving model freed):
      the weights every logit within 6e-2 (up to a MoE discontinuity: a
      dropped pair, or other experts after a gate tie).
 
+Then training (``data/``, ``optim/``, ``train/``, ``launch/train.py``; no
+kernel of the port runs there, and the launch counters, set to 0 before
+the timed cell and read after it, show none):
+
+ 16. (a) three ``make_train_step`` steps of every family's smoke config on
+     the card and on the host CPU from the same weights and batches
+     (losses within 1e-3 relative, step-1 gradients within 3e-2 relative
+     L2 per leaf); (b) gemma2-2b at full width and 2 layers, one [2, 32]
+     batch's loss and gradients, card vs host CPU; (c) gemma2-2b at full
+     width and depth (2,614,222,080 parameters, seed 0) for 10 steps
+     through ``launch.train.run`` with the launcher's defaults (batch 8 x
+     seq 128, AdamW lr 3e-3 cosine, warmup 5): losses finite and falling,
+     every bf16 leaf moved; the step by CUDA events (forward + backward,
+     optimizer; median of steps 4-10), tokens/s and peak memory beside the
+     FLOP bound (6 x parameters x tokens at 989 TFLOP/s) and the
+     optimizer's bytes bound; one more step under torch.profiler (device
+     busy share, kernels, GEMMs); (d) mamba2-130m at full width and depth:
+     6 steps with a checkpoint every 3, a resume to 10, against an
+     uninterrupted run (data cursor equal, losses within 1e-3).  Its
+     numbers print as one ``{"train": ...}`` JSON line before the last
+     three lines.
+
 Last, the paper-figure sweep (``repro_torch/eval``), each figure run with
 every launch counter and the sweep's capture counter set to 0 just before
 it and read just after:
 
- 16. every figure of ``eval.figures.FIGURES`` at ``quick=True`` on the card,
+ 17. every figure of ``eval.figures.FIGURES`` at ``quick=True`` on the card,
      with the arguments of its committed baseline (``throughput_shards``
      at shards 1 and 4: its host-bound torch timing rows at 2 and 8 are
      cut for time; every comparable record stays), artifacts under
@@ -207,6 +232,9 @@ TRACE = dict(family="zipf", n=2**22, seed=0, catalog=2**24, alpha=0.9)
 MAIN_POLICIES = ("LRU", "HYPERBOLIC")
 #: requests replayed to fill a state before probing it
 PREFIX = 2**20
+#: requests of kernel 3's LRU check against the torch twin (host-bound:
+#: about 20 s for the whole 2^22 trace on an H100 host)
+REPLAY_CHECK_N = 2**21
 #: TTL replay (smaller: the chunked twin scrubs the whole state per chunk)
 TTL_SETS, TTL_N, TTL_BATCH = 8192, 2**18, 1024
 #: TinyLFU: the paper pairs it with LFU (and LRU); ``for_capacity`` of the
@@ -215,9 +243,9 @@ TL_POLICIES = ("LRU", "LFU")
 TL_AGING = dict(width=2**20, door_bits=2**21, sample=2**20)
 #: requests of the TinyLFU runs (LRU, LFU, aging) on which kernel 3 is
 #: held to the twin: the chunked twin is host-bound (57-75 s a
-#: 2^22-request run on an H100 host), so LRU and aging run half the trace
-#: (aging twice) and LFU a quarter
-TL_N = (2**21, 2**20, 2**21)
+#: 2^22-request run on an H100 host), so LRU runs a quarter of the trace,
+#: LFU an eighth, and aging half (it ages twice there)
+TL_N = (2**20, 2**19, 2**21)
 #: hierarchy: the largest power-of-two L1 of 16 ways that fits one SM's
 #: shared memory with its expiry lane, over the full-size L2
 HIER_L1_SETS, HIER_L1_WAYS = 512, 16
@@ -230,7 +258,7 @@ HIER_GLOBAL_L1_SETS = 2 * HIER_L1_SETS
 #: kernel 4 on an aliasing-heavy hierarchy (L2 64 x 8 under L1 16 x 16:
 #: most rows it copies ahead are written by the lanes in between), held to
 #: its plain version on the first HIER_ALIAS_N requests of the trace
-HIER_ALIAS = dict(l2_sets=64, l1_sets=16, n=2**15)
+HIER_ALIAS = dict(l2_sets=64, l1_sets=16, n=2**14)
 #: hierarchy TTL run: L2 8192 x 8, L1 64 x 16, ttl_churn 2^15 requests
 HIER_TTL_L1_SETS, HIER_TTL_N = 64, 2**15
 #: kernel 3's skew check: SKEW_N requests of the trace, every other one
@@ -782,16 +810,16 @@ def probe_at_scale(card, cfg, st, trace, dev, results):
 
 
 def phase_replay_kernel(card, trace, ttl_trace, dev, results):
-    """Kernel 3 == chunked torch twin == cuda chunked path, exactly: LRU at
-    full depth, HYPERBOLIC on the first PREFIX requests (its chunked runs
-    are host-bound), and a TTL replay."""
+    """Kernel 3 == chunked torch twin == cuda chunked path, exactly: LRU on
+    the first REPLAY_CHECK_N requests, HYPERBOLIC on the first PREFIX (the
+    chunked runs are host-bound), and a TTL replay."""
     from repro_torch.core import router, simulate
     from repro_torch.core.backend import make_backend
     from repro_torch.core.kway import KWayConfig
     from repro_torch.core.policies import Policy
 
     err = 0
-    runs = [(Policy.LRU, NUM_SETS, trace, None, BATCH),
+    runs = [(Policy.LRU, NUM_SETS, trace[:REPLAY_CHECK_N], None, BATCH),
             (Policy.HYPERBOLIC, NUM_SETS, trace[:PREFIX], None, BATCH)]
     keys, ttls = ttl_trace
     runs.append((Policy.LRU, TTL_SETS, keys,
@@ -2906,13 +2934,469 @@ def phase_families(card, dev, results, serve):
 
 
 # ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+#: the timed training cell: the reference launcher's defaults (batch 8 x
+#: seq 128, lr 3e-3, cosine, warmup 5) at gemma2-2b's full width and depth
+TRAIN_ARCH = "gemma2-2b"
+TRAIN_STEPS = 10
+#: steps whose times are kept (4-10: the first three warm the allocator
+#: and the kernels' autotuning)
+TRAIN_TIMED_FROM = 4
+#: the full-width agreement model: gemma2-2b with its depth cut to this
+TRAIN_AGREE_LAYERS = 2
+TRAIN_AGREE_SHAPE = (2, 32)
+#: (a)'s optimizer: small steps (warmup 100), so three steps stay close
+TRAIN_AGREE_OPT = dict(lr=1e-3, total_steps=10)
+TRAIN_AGREE_STEPS = 3
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_GRAD_TOL = 3e-2
+#: the resume cell: mamba2-130m at full width and depth; the schedule is
+#: const because the launcher sizes its schedule by --steps (a 6-step run
+#: and a 10-step run share a cosine schedule only up to step 5)
+TRAIN_RESUME_ARGS = ["--arch", "mamba2-130m", "--batch", "8", "--seq", "128",
+                     "--schedule", "const"]
+TRAIN_RESUME_CUT = 6
+TRAIN_CKPT_DIR = os.path.join(HERE, ".chip_smoke_train_ckpt")
+#: the card's dense bf16 peak (H100 SXM), for the FLOP bound
+BF16_FLOPS_PER_S = 989e12
+
+
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| in float32 on the CPU (the norm of the
+    difference where ``want`` is all zeros)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    den = float(torch.linalg.vector_norm(want))
+    num = float(torch.linalg.vector_norm(got - want))
+    return num / den if den else num
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """{parameter name: relative L2 of its gradient} of two {name: gradient
+    or None}; a gradient on one side only raises."""
+    out = {}
+    for name, w in want.items():
+        if (got[name] is None) != (w is None):
+            raise AssertionError(f"{name}: a gradient on one device only")
+        out[name] = 0.0 if w is None else rel_l2(got[name], w)
+    return out
+
+
+def grads(model) -> dict:
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+def check_train_agreement(label, losses, errs):
+    """Losses per step within TRAIN_LOSS_TOL relative, every gradient leaf
+    within TRAIN_GRAD_TOL relative L2; -> (worst loss error, worst leaf
+    name, its error)."""
+    loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+    worst = max(errs, key=errs.get)
+    if loss_err > TRAIN_LOSS_TOL or not all(
+            np.isfinite([a for a, _ in losses])):
+        raise AssertionError(f"train {label}: losses card / CPU {losses}, "
+                             f"relative error {loss_err:.3g} over "
+                             f"{TRAIN_LOSS_TOL}")
+    if errs[worst] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"train {label}: gradient {worst} relative L2 "
+                             f"{errs[worst]:.3g} over {TRAIN_GRAD_TOL}")
+    return loss_err, worst, errs[worst]
+
+
+def train_agreement_family(card, arch, dev):
+    """(a) three ``make_train_step`` steps of ``arch``'s smoke config on
+    the card and on the host CPU from the same weights and batches."""
+    import copy
+    from repro_torch import configs
+    from repro_torch.data.pipeline import (DataConfig, DataState,
+                                           SyntheticPipeline)
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+
+    cpu = torch.device("cpu")
+    cfg = configs.get(arch).smoke
+    b, s = TRAIN_AGREE_SHAPE
+    args = train.parse(["--arch", arch, "--smoke", "--batch", str(b),
+                        "--seq", str(s)])
+    tcfg = tstep.TrainConfig(optimizer=adamw.AdamWConfig(**TRAIN_AGREE_OPT))
+    host = lm.init_params(cfg, seed=0, device=cpu)
+    card_model = copy.deepcopy(host).to(dev)
+    pipe = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=s, global_batch=b))
+    runs = []
+    for model, d in ((card_model, dev), (host, cpu)):
+        step_fn = tstep.make_train_step(cfg, tcfg)
+        state, ds, losses = adamw.init(model), DataState(), []
+        for i in range(TRAIN_AGREE_STEPS):
+            batch = train.make_batch(cfg, args, *pipe.batch(ds), d)
+            ds = pipe.advance(ds)
+            model, state, m = step_fn(model, state, batch)
+            losses.append(float(m["loss"]))
+            if i == 0:
+                step1 = {n: None if g is None else g.clone()
+                         for n, g in grads(model).items()}
+        runs.append((losses, step1))
+    (card_losses, card_g), (host_losses, host_g) = runs
+    return check_train_agreement(
+        f"{arch} smoke", list(zip(card_losses, host_losses)),
+        grad_errors(card_g, host_g))
+
+
+def train_agreement_full_width(card, dev):
+    """(b) gemma2-2b at full width, TRAIN_AGREE_LAYERS layers: the loss and
+    every gradient of one [2, 32] batch on the card and on the host CPU."""
+    import copy
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, DataState, \
+        SyntheticPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.train import step as tstep
+
+    cpu = torch.device("cpu")
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH).config,
+                              num_layers=TRAIN_AGREE_LAYERS)
+    b, s = TRAIN_AGREE_SHAPE
+    args = train.parse(["--arch", TRAIN_ARCH, "--batch", str(b), "--seq",
+                        str(s)])
+    host = lm.init_params(cfg, seed=0, device=cpu)
+    card_model = copy.deepcopy(host).to(dev)
+    pipe = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=s, global_batch=b))
+    toks, labels = pipe.batch(DataState())
+    loss_fn = tstep.make_loss_fn(cfg, tstep.TrainConfig())
+    losses, secs = [], []
+    for model, d in ((card_model, dev), (host, cpu)):
+        t0 = time.perf_counter()
+        model.requires_grad_(True)
+        loss = loss_fn(model, train.make_batch(cfg, args, toks, labels, d))
+        loss.backward()
+        losses.append(float(loss.detach()))
+        secs.append(time.perf_counter() - t0)
+    loss_err, worst, err = check_train_agreement(
+        f"{TRAIN_ARCH} full width, {cfg.num_layers} layers",
+        [tuple(losses)], grad_errors(grads(card_model), grads(host)))
+    say(card, f"train (b) {TRAIN_ARCH} at full width, {cfg.num_layers} of "
+              f"{configs.get(TRAIN_ARCH).config.num_layers} layers "
+              f"({sum(p.numel() for p in host.parameters())} parameters), "
+              f"one [{b}, {s}] batch: loss card {losses[0]:.6f} / host CPU "
+              f"{losses[1]:.6f} (relative error {loss_err:.3g}, tol "
+              f"{TRAIN_LOSS_TOL}); worst gradient leaf {worst} at relative "
+              f"L2 {err:.3g} (tol {TRAIN_GRAD_TOL}); forward + backward "
+              f"{secs[0]:.2f} s on the card (first call), {secs[1]:.2f} s "
+              f"on the host CPU")
+
+
+def timed_step_factory(marks: list):
+    """A stand-in for the launcher's ``make_train_step`` that makes the
+    same two calls (``make_value_and_grad``'s, then ``adamw.update``) with
+    CUDA events around each, and the host clock at each step's start."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+
+    def factory(cfg, tcfg):
+        value_and_grad = tstep.make_value_and_grad(cfg, tcfg)
+
+        def step(model, opt_state, batch):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            t = time.perf_counter()
+            ev[0].record()
+            loss, grads = value_and_grad(model, batch)
+            ev[1].record()
+            model, opt_state, om = adamw.update(tcfg.optimizer, grads,
+                                                opt_state, model)
+            ev[2].record()
+            marks.append((t, ev))
+            return model, opt_state, {"loss": loss, **om}
+
+        return step
+
+    return factory
+
+
+def optimizer_bytes(model) -> int:
+    """Bytes one AdamW update must move: each gradient read twice (the
+    global norm, then the leaf), the float32 master, m and v read and
+    written, the parameter written."""
+    return sum(p.numel() * (3 * p.element_size() + 24)
+               for p in model.parameters())
+
+
+def train_profile(card, cfg, args, run, med, out):
+    """Where a step's time goes: one more step after the timed run (the
+    pipeline's next batch), its forward + backward and its optimizer each
+    under torch.profiler (device activity only): device busy time, device
+    kernels, the GEMMs' share, busy over the timed run's median (the
+    device's busy share), top device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import (DataConfig, DataState,
+                                           SyntheticPipeline)
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+
+    dev = run.model.device
+    tcfg = tstep.TrainConfig(optimizer=train.optimizer_config(args))
+    pipe = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=args.seq,
+                                        global_batch=args.batch))
+    batch = train.make_batch(cfg, args, *pipe.batch(DataState(
+        run.data_step)), dev)
+    value_and_grad = tstep.make_value_and_grad(cfg, tcfg)
+    grads = {}
+    parts = (("fwd_bwd", "fb", lambda: grads.update(
+                 value_and_grad(run.model, batch)[1])),
+             ("optimizer", "opt", lambda: adamw.update(
+                 tcfg.optimizer, grads, run.opt_state, run.model)))
+    for name, key, fn in parts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        rows = device_rows(prof)
+        kernels = sum(ev.count for ev in prof.key_averages()
+                      if ev.device_type == DeviceType.CUDA
+                      and not getattr(ev, "is_user_annotation", False))
+        busy = sum(t for t, _ in rows) / 1e3
+        if not busy:
+            raise AssertionError(f"train (c) profile: no device rows for "
+                                 f"{name}")
+        gemm = sum(t for t, k in rows if any(
+            g in k.lower() for g in GEMM_NAMES)) / 1e3
+        top = ", ".join(f"{k[:40]} {t / 1e3:.2f} ms" for t, k in
+                        sorted(rows, reverse=True)[:6])
+        out[f"{name}_profile"] = dict(
+            busy_ms=busy, gemm_ms=gemm, kernels=kernels,
+            busy_share=busy / med[key], profiled_wall_ms=wall)
+        say(card, f"train (c) profile, {name} of one step: device busy "
+                  f"{busy:.3f} ms over {kernels} kernels = "
+                  f"{busy / med[key]:.1%} of the unprofiled "
+                  f"{med[key]:.3f} ms (profiled wall {wall:.1f} ms); GEMMs "
+                  f"({' / '.join(GEMM_NAMES)}) {gemm:.3f} ms; top: {top}")
+
+
+def train_timed_cell(card, dev, out):
+    """(c) ``launch/train.run`` at gemma2-2b's full width and depth, the
+    launcher's own defaults, TRAIN_STEPS steps, the step timed by CUDA
+    events (forward + backward, then the optimizer)."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    cfg = configs.get(TRAIN_ARCH).config
+    args = train.parse(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS)])
+    ocfg = train.optimizer_config(args)
+    tokens = args.batch * args.seq
+    say(card, f"train (c) config: {cfg.name} at full width and depth "
+              f"({cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} "
+              f"heads x {cfg.hd}, {cfg.num_kv_heads} KV heads, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied), random from seed "
+              f"{args.seed}; SyntheticPipeline batch {args.batch} x seq "
+              f"{args.seq} ({tokens} tokens a step); AdamW lr {ocfg.lr} "
+              f"{ocfg.schedule}, warmup {ocfg.warmup_steps}, total "
+              f"{ocfg.total_steps}; {TRAIN_STEPS} steps through "
+              f"launch.train.run")
+    marks = []
+    real = train.make_train_step
+    train.make_train_step = timed_step_factory(marks)
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        run = train.run(args)
+    finally:
+        train.make_train_step = real
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = run.losses
+    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"train (c): losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train (c): loss at step {TRAIN_STEPS} "
+                             f"{losses[-1]} not below step 1's {losses[0]}")
+    n_params = sum(p.numel() for p in run.model.parameters())
+    opt_bytes = optimizer_bytes(run.model)
+    fresh = lm.init_params(cfg, seed=args.seed, device=dev)
+    unchanged = [n for (n, a), (_, b) in zip(run.model.named_parameters(),
+                                             fresh.named_parameters())
+                 if a.dtype == torch.bfloat16 and torch.equal(a, b)]
+    changed_share = float(np.mean([
+        float((a != b).float().mean()) for (_, a), (_, b) in zip(
+            run.model.named_parameters(), fresh.named_parameters())
+        if a.dtype == torch.bfloat16]))
+    del fresh
+    if unchanged:
+        raise AssertionError(f"train (c): bf16 parameters unchanged after "
+                             f"{TRAIN_STEPS} steps: {unchanged}")
+    fb = [s.elapsed_time(e) for _, (s, e, _) in marks]
+    opt = [s.elapsed_time(e) for _, (_, s, e) in marks]
+    step = [a + b for a, b in zip(fb, opt)]
+    starts = [t for t, _ in marks]
+    wall_steps = [b - a for a, b in zip(starts, starts[1:])]
+    k = TRAIN_TIMED_FROM - 1
+    med = {name: statistics.median(v[k:]) for name, v in
+           (("step", step), ("fb", fb), ("opt", opt))}
+    med["wall"] = statistics.median(wall_steps[k:]) * 1e3
+    train_profile(card, cfg, args, run, med, out)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    flop_ms = 6 * n_params * tokens / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    bound = flop_ms + bytes_ms
+    out.update(
+        arch=cfg.name, layers=cfg.num_layers, params=n_params,
+        batch=args.batch, seq=args.seq, steps=TRAIN_STEPS,
+        losses=losses, step_ms=med["step"], fwd_bwd_ms=med["fb"],
+        optimizer_ms=med["opt"], wall_step_ms=med["wall"],
+        tokens_per_s=tokens / med["step"] * 1e3,
+        wall_tokens_per_s=tokens / med["wall"] * 1e3,
+        peak_bytes=peak, flop_bound_ms=flop_ms, bytes_bound_ms=bytes_ms,
+        step_bound_ms=bound, flop_share=flop_ms / med["fb"],
+        bytes_share=bytes_ms / med["opt"], step_share=bound / med["step"],
+        optimizer_bytes=opt_bytes, changed_share=changed_share,
+        step_ms_all=step, launches=counts, run_s=wall)
+    say(card, f"train (c) {cfg.name}: {n_params} parameters; losses "
+              f"{' '.join(f'{x:.4f}' for x in losses)} (finite; step "
+              f"{TRAIN_STEPS} below step 1); every bf16 leaf changed "
+              f"({changed_share:.1%} of bf16 elements)")
+    say(card, f"train (c) {cfg.name}: step {med['step']:.3f} ms (CUDA events, "
+              f"median of steps {TRAIN_TIMED_FROM}-{TRAIN_STEPS}) = forward "
+              f"+ backward {med['fb']:.3f} ms + optimizer {med['opt']:.3f} "
+              f"ms; host wall {med['wall']:.3f} ms a step (the launcher "
+              f"syncs on each loss); {out['tokens_per_s']:.1f} tokens/s "
+              f"(device), {out['wall_tokens_per_s']:.1f} (wall); peak "
+              f"device memory {peak} B; every step's ms "
+              f"{' '.join(f'{x:.2f}' for x in step)}")
+    say(card, f"train (c) bounds: FLOPs 6 x {n_params} x {tokens} = "
+              f"{6 * n_params * tokens:.4g} at {BF16_FLOPS_PER_S:.4g} "
+              f"FLOP/s = {flop_ms:.3f} ms ({out['flop_share']:.1%} of "
+              f"forward + backward); optimizer bytes {opt_bytes} at "
+              f"{HBM_BYTES_PER_S:.4g} B/s = {bytes_ms:.3f} ms "
+              f"({out['bytes_share']:.1%} of the optimizer); step bound "
+              f"{bound:.3f} ms ({out['step_share']:.1%} of the step); "
+              f"kernel launches of the port in the run: {counts} (training "
+              f"runs none of the cache kernels)")
+
+
+def train_resume_cell(card, out):
+    """(d) ``launch/train.run`` on mamba2-130m at full width and depth: 6
+    steps with a checkpoint every 3, then a resume to 10, against an
+    uninterrupted 10-step run from the same start."""
+    import shutil
+    from repro_torch.ckpt import manager as ckpt
+    from repro_torch.launch import train
+
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    common = TRAIN_RESUME_ARGS + ["--ckpt-every", "3"]
+    try:
+        t0 = time.perf_counter()
+        first = train.run(train.parse(common + [
+            "--steps", str(TRAIN_RESUME_CUT), "--ckpt-dir", TRAIN_CKPT_DIR]))
+        t1 = time.perf_counter()
+        if ckpt.latest_step(TRAIN_CKPT_DIR) != TRAIN_RESUME_CUT:
+            raise AssertionError("train (d): no checkpoint at step "
+                                 f"{TRAIN_RESUME_CUT}")
+        ck_bytes = sum(
+            os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(
+                os.path.join(TRAIN_CKPT_DIR, f"step_{TRAIN_RESUME_CUT:09d}"))
+            for f in fs)
+        del first.model, first.opt_state
+        rest = train.run(train.parse(common + [
+            "--steps", str(TRAIN_STEPS), "--ckpt-dir", TRAIN_CKPT_DIR]))
+        t2 = time.perf_counter()
+        del rest.model, rest.opt_state
+        if ckpt.latest_step(TRAIN_CKPT_DIR) != TRAIN_STEPS:
+            raise AssertionError("train (d): the resumed run did not save "
+                                 f"step {TRAIN_STEPS}")
+    finally:
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    whole = train.run(train.parse(TRAIN_RESUME_ARGS + [
+        "--steps", str(TRAIN_STEPS)]))
+    t3 = time.perf_counter()
+    del whole.model, whole.opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    cursors = (first.data_step, rest.start_step, rest.data_step,
+               whole.data_step)
+    if cursors != (TRAIN_RESUME_CUT, TRAIN_RESUME_CUT, TRAIN_STEPS,
+                   TRAIN_STEPS):
+        raise AssertionError(f"train (d): data cursors / resume step "
+                             f"{cursors}")
+    pairs = list(zip(first.losses + rest.losses, whole.losses))
+    if len(pairs) != TRAIN_STEPS:
+        raise AssertionError(f"train (d): {len(pairs)} losses")
+    err = max(abs(a - b) / abs(b) for a, b in pairs)
+    if err > TRAIN_LOSS_TOL or not np.all(np.isfinite(whole.losses)):
+        raise AssertionError(f"train (d): resumed losses {pairs}, relative "
+                             f"error {err:.3g} over {TRAIN_LOSS_TOL}")
+    out.update(resume_loss_err=err, resume_ckpt_bytes=ck_bytes,
+               resume_first_s=t1 - t0, resume_rest_s=t2 - t1,
+               resume_whole_s=t3 - t2)
+    say(card, f"train (d) mamba2-130m at full width and depth, "
+              f"{' '.join(TRAIN_RESUME_ARGS[2:])}: {TRAIN_RESUME_CUT} steps "
+              f"(checkpoints every 3, {ck_bytes} B each) in {t1 - t0:.1f} s, "
+              f"resumed at step {rest.start_step} (data cursor "
+              f"{first.data_step}) to {TRAIN_STEPS} in {t2 - t1:.1f} s; "
+              f"uninterrupted {TRAIN_STEPS} steps in {t3 - t2:.1f} s; every "
+              f"loss within {err:.3g} relative (tol {TRAIN_LOSS_TOL}; the "
+              f"embedding's backward adds atomically on the card); losses "
+              f"{' '.join(f'{a:.5f}/{b:.5f}' for a, b in pairs)}")
+
+
+def phase_train(card, dev, out):
+    """Training (``data/``, ``optim/``, ``train/``, ``launch/train.py``) on
+    the card: (a) every family's smoke config, three steps card vs host
+    CPU; (b) gemma2-2b at full width and TRAIN_AGREE_LAYERS layers, loss
+    and gradients card vs host CPU; (c) the timed cell, gemma2-2b at full
+    width and depth through the launcher; (d) a resume at mamba2-130m's
+    full size.  Training runs no kernel of the port's cache path: the
+    launch counters are set to 0 before (c) and read after it."""
+    from repro_torch import configs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(card, f"train: device memory in use at the start "
+              f"{torch.cuda.memory_allocated()} B")
+    t0 = time.perf_counter()
+    worst = (0.0, "", 0.0, "")
+    for arch in configs.ARCH_IDS:
+        loss_err, leaf, err = train_agreement_family(card, arch, dev)
+        if err >= worst[2]:
+            worst = (max(loss_err, worst[0]), leaf, err, arch)
+        else:
+            worst = (max(loss_err, worst[0]),) + worst[1:]
+    say(card, f"train (a) all {len(configs.ARCH_IDS)} smoke configs, "
+              f"{TRAIN_AGREE_STEPS} make_train_step steps card vs host CPU "
+              f"(AdamW {TRAIN_AGREE_OPT}): losses within {worst[0]:.3g} "
+              f"relative (tol {TRAIN_LOSS_TOL}); step-1 gradients within "
+              f"{worst[2]:.3g} relative L2 (worst {worst[3]} {worst[1]}; tol "
+              f"{TRAIN_GRAD_TOL}) in {time.perf_counter() - t0:.1f} s")
+    out.update(agree_loss_err=worst[0], agree_grad_err=worst[2])
+    train_agreement_full_width(card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_timed_cell(card, dev, out)
+    train_resume_cell(card, out)
+
+
+# ---------------------------------------------------------------------------
 # set sharding and the robustness layer
 # ---------------------------------------------------------------------------
 
 #: shard counts of the sharded resident replay on the main path's trace
 SHARD_COUNTS = (1, 2, 4, 8)
 #: requests of the checks against the sharded torch twin on the card
-SHARD_TWIN_N = 2**18
+SHARD_TWIN_N = 2**17
 #: requests of the chunked sharded path (kernel 2 per shard per chunk)
 SHARD_CHUNKED_N = 2**19
 #: overflow-defer: D = 8 shards, 256 and 128 lanes a bucket (a chunk of
@@ -3162,8 +3646,8 @@ def phase_sharded_serve(card, dev, results, serve):
     """The serving host loop with a sharded prefix cache
     (``EngineConfig(shards=D)``, cuda backend) at full width, counted:
     tokens, stats, hit ratio and evictions equal to ``phase_serve_path``'s
-    ``shards=1`` run at D = 2 and 4; then tokens/s of D = 1, 2, 4 in turns
-    (1 / 2 / 4 / 4 / 2 / 1)."""
+    ``shards=1`` run at D = 2 and 4; then tokens/s of D = 1, 2, 4, one
+    timed run each."""
     cfg = serve_config()
     model, prompts = serve["model"], serve["prompts"]
     hst, hreqs, _, hhr = serve["host"]
@@ -3188,7 +3672,7 @@ def phase_sharded_serve(card, dev, results, serve):
     check_launches(card, "sharded serving", ("kway_probe",
                                              "paged_attention"), results)
     rates = {1: [], 2: [], 4: []}
-    for shards in (1, 2, 4, 4, 2, 1):
+    for shards in (1, 2, 4):
         st, reqs, wall, _ = drive_engine(cfg, model, "cuda", prompts, dev,
                                          shards=shards)
         n_tok = sum(len(t) for t, _, _ in reqs.values())
@@ -3746,7 +4230,7 @@ def main() -> int:
             replaces="src/repro/kernels/paged_attention.py:103",
             exact="within tolerance"),
     }
-    serve = {}
+    serve, train_out = {}, {}
     for phase, args in (
             (phase_probe_kernels, (trace, dev, results)),
             (phase_replay_kernel, (trace, ttl_trace, dev, results)),
@@ -3769,6 +4253,7 @@ def main() -> int:
             (phase_paged_attention_kernel, (dev, results, serve)),
             (phase_paged_attention_timing, (dev, results, serve)),
             (phase_families, (dev, results, serve)),
+            (phase_train, (dev, train_out)),
             (phase_eval, (dev, results))):
         t0 = time.perf_counter()
         phase(card, *args)
@@ -3800,6 +4285,7 @@ def main() -> int:
     say(card, f"cards on this machine: {torch.cuda.device_count()}; the "
               f"script drives card 0")
     say(card, f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"train": train_out}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     # the script drives one card, whatever the machine holds

@@ -17,7 +17,9 @@ Guarantees, as in the reference:
 
 A tree is a dataclass of tensors (``ServeState``, ``KWayState``,
 ``TinyLFUState``; nested dataclasses and dicts too), flattened by field
-name into paths such as ``.kstate.keys``; a ``None`` field is no leaf.
+name into paths such as ``.kstate.keys``; a ``None`` field is no leaf.  An
+``nn.Module`` (the trainer's model) is flattened by its
+``named_parameters()``, paths such as ``['params'].blocks.0.attn.wq``.
 numpy has no bfloat16, so a bf16 leaf is saved as its ``uint16`` view with
 ``bfloat16`` named in the manifest and restored bit for bit.
 ``restore(like_tree)`` copies into ``like_tree``'s tensors in place (the
@@ -32,6 +34,7 @@ import shutil
 
 import numpy as np
 import torch
+from torch import nn
 
 _BF16 = "bfloat16"
 
@@ -46,6 +49,9 @@ def flatten(tree, prefix: str = "") -> list:
         return []
     if isinstance(tree, torch.Tensor):
         return [(prefix, tree)]
+    if isinstance(tree, nn.Module):
+        return [(f"{prefix}.{name}", p)
+                for name, p in tree.named_parameters()]
     if dataclasses.is_dataclass(tree):
         return [leaf for f in dataclasses.fields(tree)
                 for leaf in flatten(getattr(tree, f.name),
@@ -54,7 +60,7 @@ def flatten(tree, prefix: str = "") -> list:
         return [leaf for k in sorted(tree)
                 for leaf in flatten(tree[k], f"{prefix}[{k!r}]")]
     raise TypeError(f"checkpoint leaf {prefix!r} is a {type(tree).__name__},"
-                    " not a tensor, dataclass or dict")
+                    " not a tensor, module, dataclass or dict")
 
 
 def _to_numpy(t: torch.Tensor) -> tuple:
@@ -144,9 +150,10 @@ def restore(root: str, step: int, like_tree):
                 f"checkpoint {d} leaf {path!r} has shape "
                 f"{tuple(manifest['shapes'][i])}, target expects "
                 f"{tuple(dst.shape)}")
-    for i, (path, dst) in enumerate(flat):
-        arr = np.load(os.path.join(d, _leaf_name(i)))
-        dst.copy_(_from_numpy(arr, manifest["dtypes"][i]))
+    with torch.no_grad():     # a trainer's parameters require grad
+        for i, (path, dst) in enumerate(flat):
+            arr = np.load(os.path.join(d, _leaf_name(i)))
+            dst.copy_(_from_numpy(arr, manifest["dtypes"][i]))
     return like_tree, manifest["extra"]
 
 

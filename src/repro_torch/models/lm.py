@@ -11,9 +11,11 @@ embeddings) and a prefix-embedding VLM (the internvl backbone).  One
 blocks are ``Block``s too.  The reference stacks each layer's parameters
 on a leading L axis; ``params_from_numpy`` / ``params_to_numpy`` convert
 between that tree (as numpy arrays) and the modules, so a test can run
-both packages on the same weights.  Weights are bf16; the MoE router, the
-SSD's ``A_log`` / ``D`` / ``dt_bias`` / ``norm`` and the norm scales are
-float32 (the norms scale by ``1 + w``).
+both packages on the same weights (``grads_to_numpy`` does it for the
+gradients, ``to_tree`` / ``from_tree`` for any per-parameter tensors).
+Weights are bf16; the MoE router, the SSD's ``A_log`` / ``D`` /
+``dt_bias`` / ``norm`` and the norm scales are float32 (the norms scale
+by ``1 + w``).
 
 Numerics follow the reference as XLA compiles its layer loop: a bf16 op
 whose result is cast straight to float32 keeps its float32 value (the
@@ -59,6 +61,7 @@ def layer_windows(cfg: ModelConfig) -> list[int]:
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
+    """A frozen weight: serving builds no graph; the trainer unfreezes."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -335,38 +338,66 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> LM:
     return LM(cfg, tensors)
 
 
-def _blocks_to_numpy(blocks) -> dict:
-    def a(t):
-        return t.detach().float().cpu().numpy()
+def tree_paths(model: LM) -> list:
+    """(parameter name, key path in the reference's tree, layer index or
+    None) of every parameter, in ``named_parameters()`` order: a block's
+    leaf ``blocks.3.attn.wq`` is row 3 of the reference's stacked
+    ``["blocks"]["attn"]["wq"]``."""
+    out = []
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] in ("blocks", "enc_blocks"):
+            out.append((name, (parts[0], *parts[2:]), int(parts[1])))
+        else:
+            out.append((name, (parts[0],), None))
+    return out
 
-    b0 = blocks[0]
-    tree = {}
-    for name in NORMS:
-        if getattr(b0, name) is not None:
-            tree[name] = np.stack([a(getattr(b, name)) for b in blocks])
-    for name in PARTS:
-        if getattr(b0, name) is not None:
-            tree[name] = {k: np.stack([a(getattr(b, name)[k])
-                                       for b in blocks])
-                          for k in getattr(b0, name)}
+
+def to_tree(model: LM, leaves: dict) -> dict:
+    """{parameter name: numpy array} -> the reference's tree layout, the
+    per-layer leaves stacked on a leading L axis."""
+    tree, stacks = {}, {}
+    for name, keys, i in tree_paths(model):
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        if i is None:
+            node[keys[-1]] = leaves[name]
+        else:
+            stacks.setdefault(keys, (node, []))[1].append(leaves[name])
+    for keys, (node, rows) in stacks.items():
+        node[keys[-1]] = np.stack(rows)
     return tree
+
+
+def from_tree(model: LM, tree: dict) -> dict:
+    """The reference's stacked tree -> {parameter name: numpy array}."""
+    out = {}
+    for name, keys, i in tree_paths(model):
+        leaf = tree
+        for k in keys:
+            leaf = leaf[k]
+        out[name] = np.asarray(leaf if i is None else leaf[i])
+    return out
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
 
 
 def params_to_numpy(model: LM) -> dict:
     """``LM`` -> the reference's tree layout as float32 numpy arrays (bf16
     weights widen exactly), per-layer leaves stacked on a leading L axis."""
-    def a(t):
-        return t.detach().float().cpu().numpy()
+    return to_tree(model, {n: _np(p) for n, p in model.named_parameters()})
 
-    tree = {"embed": a(model.embed),
-            "blocks": _blocks_to_numpy(model.blocks),
-            "final_norm": a(model.final_norm)}
-    if model.lm_head is not None:
-        tree["lm_head"] = a(model.lm_head)
-    if len(model.enc_blocks):
-        tree["enc_blocks"] = _blocks_to_numpy(model.enc_blocks)
-        tree["enc_norm"] = a(model.enc_norm)
-    return tree
+
+def grads_to_numpy(model: LM) -> dict:
+    """The parameters' ``.grad`` in the reference's tree layout (float32
+    numpy); a parameter without a gradient (mamba2's ``ln2``: its block has
+    no MLP) gives zeros, as ``jax.grad`` does."""
+    return to_tree(model, {
+        n: np.zeros(p.shape, np.float32) if p.grad is None else _np(p.grad)
+        for n, p in model.named_parameters()})
 
 
 # ---------------------------------------------------------------------------
@@ -396,13 +427,15 @@ def _encode(cfg: ModelConfig, model: LM, enc_embeds) -> torch.Tensor:
     return L.rms_norm(x, model.enc_norm, cfg.norm_eps)
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, model: LM, tokens, prefix_embeds=None,
             enc_embeds=None) -> torch.Tensor:
     """Logits [B, S, padded_vocab] (bf16) over the full sequence: the
     ``prefix_embeds`` [B, P, d] (the VLM stub) then the tokens [B, S_tok];
     an encoder-decoder config encodes ``enc_embeds`` [B, T_enc, d] (the
-    audio stub) and cross-attends to it from every decoder block."""
+    audio stub) and cross-attends to it from every decoder block.  It
+    builds an autograd graph only when the parameters require grad, as
+    the trainer sets them (``model.requires_grad_(True)``); the weights
+    are built frozen, so serving stays graph-free."""
     x = model.embed[tokens.long()] * _bf16_scale(cfg)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)

@@ -1164,3 +1164,79 @@ def test_moe_tick_on_the_card_matches_the_host_loop(cuda, kw):
     assert sorted(treqs) == sorted(hreqs) == list(range(len(prompts)))
     chip_smoke.check_tick_tokens(rec, hreqs, {
         rid: (toks, hits) for rid, (toks, _, hits) in treqs.items()})
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+def _train_steps(arch, dev, steps=3):
+    """``steps`` ``make_train_step`` steps of ``arch``'s smoke config from
+    seed-0 weights and the pipeline's batches on ``dev`` -> (losses, the
+    step-1 gradients by name)."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import (DataConfig, DataState,
+                                           SyntheticPipeline)
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    cfg = configs.get(arch).smoke
+    args = train.parse(["--arch", arch, "--smoke", "--batch", "2", "--seq",
+                        "32"])
+    model = lm.init_params(cfg, seed=0, device="cpu").to(dev)
+    state = adamw.init(model)
+    step_fn = tstep.make_train_step(cfg, tstep.TrainConfig(
+        optimizer=adamw.AdamWConfig(lr=1e-3, total_steps=10)))
+    pipe = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=32, global_batch=2))
+    ds, losses, grads = DataState(), [], None
+    for _ in range(steps):
+        batch = train.make_batch(cfg, args, *pipe.batch(ds), dev)
+        ds = pipe.advance(ds)
+        model, state, m = step_fn(model, state, batch)
+        losses.append(float(m["loss"]))
+        if grads is None:
+            grads = {n: None if p.grad is None else p.grad.float().cpu()
+                     for n, p in model.named_parameters()}
+    return losses, grads
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """Three train steps on the card against the same steps on the CPU:
+    each loss within 1e-3 relative, every step-1 gradient leaf within 3e-2
+    relative L2 (None on both sides where the loss does not reach)."""
+    want_losses, want_grads = _train_steps(arch, torch.device("cpu"))
+    got_losses, got_grads = _train_steps(arch, cuda)
+    np.testing.assert_allclose(got_losses, want_losses, rtol=1e-3)
+    assert got_grads.keys() == want_grads.keys()
+    for name, want in want_grads.items():
+        got = got_grads[name]
+        assert (got is None) == (want is None), name
+        if want is not None:
+            den = float(torch.linalg.vector_norm(want))
+            err = float(torch.linalg.vector_norm(got - want))
+            assert err <= 3e-2 * den, (arch, name, err / max(den, 1e-30))
+
+
+def test_train_launcher_resumes_on_the_card(cuda, tmp_path):
+    """mamba2-130m smoke on the card (the launcher's default device): 6
+    steps with a checkpoint every 3, then a resume to 10, the data cursor
+    restored and every loss within 1e-3 relative of an uninterrupted run
+    (the embedding's backward adds atomically on the card, so not bit for
+    bit)."""
+    from repro_torch.ckpt import manager as ckpt
+    from repro_torch.launch import train
+    base = ["--arch", "mamba2-130m", "--smoke", "--batch", "2", "--seq",
+            "32", "--schedule", "const", "--ckpt-every", "3"]
+    d = str(tmp_path / "run")
+    first = train.run(train.parse(base + ["--steps", "6", "--ckpt-dir", d]))
+    assert ckpt.latest_step(d) == 6 and first.data_step == 6
+    assert next(first.model.parameters()).device.type == "cuda"
+    rest = train.run(train.parse(base + ["--steps", "10", "--ckpt-dir", d]))
+    assert (rest.start_step, rest.data_step) == (6, 10)
+    assert ckpt.latest_step(d) == 10
+    whole = train.run(train.parse(base + ["--steps", "10"]))
+    np.testing.assert_allclose(first.losses + rest.losses, whole.losses,
+                               rtol=1e-3)
