@@ -15,7 +15,8 @@ serving slice:
      full-size state, all 5 policies, every variant, on the raw keys of a
      1024-query and a 16384-query batch — exactly, in the same dtypes, and
      kernel 2 leaving meta_a as it was; and counts the device kernels of
-     one ``ops.fused_probe`` call with torch.profiler (it must be 1);
+     one ``ops.fused_probe`` call (it must be 1): its kernel by the
+     wrapper's launch counter, any other by torch.profiler;
   3. holds kernel 3 (``replay_resident``) to the chunked torch twin and to
      the ``cuda`` backend's chunked path (kernel 2 + torch apply): per-chunk
      hits and evictions and the final state, exactly; LRU on the first
@@ -153,9 +154,10 @@ After 10, every model family (the deepseek-7b serving model freed):
      the weights every logit within 6e-2 (up to a MoE discontinuity: a
      dropped pair, or other experts after a gate tie).
 
-Then training (``data/``, ``optim/``, ``train/``, ``launch/train.py``; no
-kernel of the port runs there, and the launch counters, set to 0 before
-the timed cell and read after it, show none):
+Training (``data/``, ``optim/``, ``train/``, ``launch/train.py``) runs
+first, while nvcc builds the kernels: no kernel of the port runs there,
+and the launch counters, set to 0 before the timed cell and read after
+it, show none.  It is:
 
  16. (a) three ``make_train_step`` steps of every family's smoke config on
      the card and on the host CPU from the same weights and batches
@@ -174,6 +176,25 @@ the timed cell and read after it, show none):
      uninterrupted run (data cursor equal, losses within 1e-3).  Its
      numbers print as one ``{"train": ...}`` JSON line before the last
      three lines.
+
+Then the mesh, the sharding rules and the dry run (``launch/mesh.py``,
+``dist/sharding.py``, ``launch/dryrun.py``, ``roofline/``), on one
+one-rank NCCL group:
+
+ 16b. (a) ``ShardedCache`` on a one-device ``sets`` mesh against
+     ``mesh=None`` over the main trace's first 2^19 requests, LRU and
+     TinyLFU: every chunk's outputs and the final lanes (and sketch)
+     equal, kernel 2 (and kernel 1) counted into the JSON line; (b)
+     ``launch.train.run`` through ``make_dev_mesh(1, 1)`` against no
+     mesh, gemma2-2b full width 2 layers, 3 steps: equal losses; (c) the
+     dry run's prediction of gemma2-2b's full-size step (seq 128 x batch
+     8 in one pass, as phase_train's) on a one-device "cuda" mesh under
+     ``FakeTensorMode``, then the same step for real: peak memory within
+     15 %, FLOPs equal, ms a step beside the roofline's ``step_time``;
+     (d) mixtral-8x22b ``decode_32k`` through ``python -m
+     repro_torch.launch.dryrun`` on the fake 16x16 "cuda" mesh, in a
+     subprocess beside (a)-(c).  Its numbers print as one ``{"mesh":
+     ...}`` JSON line after the ``{"train": ...}`` one.
 
 Last, the paper-figure sweep (``repro_torch/eval``), each figure run with
 every launch counter and the sweep's capture counter set to 0 just before
@@ -208,6 +229,7 @@ it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import gc
 import itertools
@@ -328,7 +350,9 @@ def card_line() -> str:
 
 
 def say(card, msg):
-    print(f"[{card}] {msg}", flush=True)
+    # one write a line: the kernel build's thread prints beside training
+    sys.stdout.write(f"[{card}] {msg}\n")
+    sys.stdout.flush()
 
 
 def say_previous(card, name):
@@ -618,27 +642,42 @@ def phase_probe_kernels(card, trace, dev, results):
         ("fused_probe", lambda: ops.fused_probe(cfg, st, q, en)))}
     if counts["fused_probe"] != 1:
         raise AssertionError(f"ops.fused_probe ran {counts['fused_probe']} "
-                             f"device kernels, not 1")
-    say(card, f"device kernels of one ops call (torch.profiler): {counts}")
+                             f"device kernels, not 1 (counts {counts})")
+    say(card, f"device kernels of one ops call (the probe kernel by its "
+              f"launch counter, any other by torch.profiler): {counts}")
     results["kway_probe"].update(max_abs_err=err1,
                                  ops_device_kernels=counts["probe_orders"])
     results["kway_fused_probe"].update(
         max_abs_err=err2, ops_device_kernels=counts["fused_probe"])
 
 
+#: the names torch.profiler gives the port's kernels that ``ops.probe_orders``
+#: and ``ops.fused_probe`` launch
+PROBE_KERNEL_NAMES = ("(anonymous namespace)::probe_kernel<",
+                      "(anonymous namespace)::fused_kernel<")
+
+
 def device_kernel_count(fn) -> int:
-    """Device activities (kernels, copies, sets) of one call of ``fn``, by
-    torch.profiler, after a warm-up call."""
+    """Device activities (kernels, copies, sets) of one call of ``fn``,
+    after a warm-up call: the port's kernels by their wrappers' launch
+    counters, every other activity by torch.profiler.  CUPTI drops the
+    records of the port's kernels (launched from their own libraries) in
+    some sessions and torch's own in none of this script's runs, so the
+    profiler's rows of the port's probe kernels are not counted."""
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    before = sum(launch_counts().values())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(ev.count for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and not getattr(ev, "is_user_annotation", False))
+    port = sum(launch_counts().values()) - before
+    return port + sum(ev.count for ev in prof.key_averages()
+                      if ev.device_type == DeviceType.CUDA
+                      and not getattr(ev, "is_user_annotation", False)
+                      and not any(n in ev.key for n in PROBE_KERNEL_NAMES))
 
 
 def host_us(fn, calls: int = 200, reps: int = 7) -> float:
@@ -3348,8 +3387,8 @@ def train_resume_cell(card, out):
               f"resumed at step {rest.start_step} (data cursor "
               f"{first.data_step}) to {TRAIN_STEPS} in {t2 - t1:.1f} s; "
               f"uninterrupted {TRAIN_STEPS} steps in {t3 - t2:.1f} s; every "
-              f"loss within {err:.3g} relative (tol {TRAIN_LOSS_TOL}; the "
-              f"embedding's backward adds atomically on the card); losses "
+              f"loss within {err:.3g} relative (tol {TRAIN_LOSS_TOL}: the "
+              f"card's gradient sums need not repeat their order); losses "
               f"{' '.join(f'{a:.5f}/{b:.5f}' for a, b in pairs)}")
 
 
@@ -3387,6 +3426,333 @@ def phase_train(card, dev, out):
     torch.cuda.empty_cache()
     train_timed_cell(card, dev, out)
     train_resume_cell(card, out)
+
+
+# ---------------------------------------------------------------------------
+# the mesh, the sharding rules and the dry run
+# ---------------------------------------------------------------------------
+
+#: (a) the mesh replay: the main trace's first requests, in BATCH chunks
+MESH_REPLAY_N = 2**19
+#: (b) the trainer through make_dev_mesh(1, 1): gemma2-2b at full width,
+#: TRAIN_AGREE_LAYERS layers, the launcher's batch, TRAIN_AGREE_OPT's lr
+MESH_TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", "3", "--lr", "1e-3"]
+MESH_LOSS_TOL = 1e-6
+#: (c) phase_train's timed cell (seq 128, batch 8, one microbatch as there)
+#: predicted by the dry run on a one-device "cuda" mesh, then run for
+#: real: 1 warm-up, 3 timed steps (the reference's 8 microbatches of one
+#: sequence took 31.6 s to predict and 3.6-4.8 s a step)
+MESH_CELL = ("train_1k", 128, 8, "train")
+MESH_MICROBATCHES = 1
+MESH_TIMED_STEPS = 3
+MESH_MEMORY_TOL = 0.15
+#: (d) production cells of the dry run on the fake 16x16 "cuda" mesh, one
+#: subprocess each, run beside (a)-(c): mixtral-8x22b's decode, the largest
+#: cache (gemma2-2b train_4k, 47-55 s of a host core, would outlast (a)-(c)
+#: and take the phase past its 60 s; the CPU sweep runs every cell)
+MESH_DRYRUN_CELLS = (("mixtral-8x22b", "decode_32k"),)
+MESH_DRYRUN_OUT = os.path.join(HERE, "chiprun_out", "dryrun")
+
+
+@contextlib.contextmanager
+def cut_depth(arch: str, layers: int):
+    """``configs.get(arch).config`` with its depth cut to ``layers`` while
+    the block runs (the launcher reads the config by name)."""
+    import dataclasses
+    from repro_torch import configs
+
+    real = configs.get
+    spec = real(arch)
+    cut = dataclasses.replace(spec, config=dataclasses.replace(
+        spec.config, num_layers=layers))
+    configs.get = lambda a: cut if a == arch else real(a)
+    try:
+        yield cut.config
+    finally:
+        configs.get = real
+
+
+def mesh_replay(card, trace, dev, results, out):
+    """(a) ``ShardedCache(mesh=...)`` on a one-device ``sets`` mesh against
+    ``mesh=None``: MESH_REPLAY_N requests of the main trace in BATCH
+    chunks, LRU and TinyLFU; every chunk's hits, values and evictions and
+    the final lanes (and sketch) bit for bit.  The mesh runs are counted:
+    kernel 2 a chunk, kernel 1 under TinyLFU."""
+    from repro_torch.core import admission, kway
+    from repro_torch.core.kway import KWayConfig
+    from repro_torch.core.policies import Policy
+    from repro_torch.core.sharded import ShardedCache, ShardedConfig
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh((1,), ("sets",), "cuda")
+    trace = trace[:MESH_REPLAY_N]
+    cfg = ShardedConfig(cache=KWayConfig(num_sets=NUM_SETS, ways=WAYS,
+                                         policy=Policy.LRU), num_shards=1)
+    for label, tl, kernels in (
+            ("LRU", None, ("kway_fused_probe",)),
+            ("TinyLFU", admission.for_capacity(NUM_SETS * WAYS),
+             ("kway_fused_probe", "kway_probe"))):
+        runs, secs = [], []
+        for m in (None, mesh):
+            sc = ShardedCache(cfg, m, device=dev)
+            st = sc.init()
+            sk = sc.init_sketches(tl) if tl is not None else None
+            outs = []
+            if m is not None:
+                reset_launch_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            for c in range(0, len(trace), BATCH):
+                keys = trace[c:c + BATCH]
+                kw = {} if tl is None else {"tinylfu": tl, "sketches": sk}
+                st, *o = sc.access(st, keys, keys.astype(np.int32), **kw)
+                if tl is not None:
+                    sk = o.pop()
+                outs.append(torch.stack([x.to(torch.int32) for x in o]))
+            sync(dev)
+            secs.append(time.perf_counter() - t0)
+            if m is not None:
+                check_launches(card, f"mesh replay {label}", kernels,
+                               results)
+            runs.append((torch.stack(outs), kway.state_to_numpy(st),
+                         None if sk is None else
+                         admission.sketch_to_numpy(sk)))
+        (a, sa, ka), (b, sb, kb) = runs
+        if not torch.equal(a, b):
+            raise AssertionError(f"mesh replay {label}: chunk outputs "
+                                 f"differ from mesh=None")
+        for leaf in sa:
+            np.testing.assert_array_equal(sa[leaf], sb[leaf],
+                                          err_msg=f"mesh {label} {leaf}")
+        for leaf in (ka or {}):
+            np.testing.assert_array_equal(ka[leaf], kb[leaf],
+                                          err_msg=f"mesh {label} {leaf}")
+        hits = int(a[:, 0].sum())
+        say(card, f"mesh (a) ShardedCache on a one-device 'sets' mesh "
+                  f"({label}, {len(trace)} requests, {a.shape[0]} chunks of "
+                  f"{BATCH}): hits {hits}, every chunk's outputs and the "
+                  f"final lanes{' and sketch' if ka else ''} equal to "
+                  f"mesh=None; {secs[1]:.2f} s on the mesh, {secs[0]:.2f} s "
+                  f"without (one all_gather_into_tensor a chunk)")
+        out[f"replay_{label}_s"] = secs
+
+
+def mesh_train(card, out):
+    """(b) ``launch.train.run`` through ``make_dev_mesh(1, 1)`` (DTensor
+    parameters, all replicated) against the plain run: gemma2-2b at full
+    width, TRAIN_AGREE_LAYERS layers, 3 steps, deterministic algorithms
+    (every backward op adds in one order); losses equal."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+
+    mesh = mesh_lib.make_dev_mesh(1, 1)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with cut_depth(TRAIN_ARCH, TRAIN_AGREE_LAYERS):
+            t0 = time.perf_counter()
+            on = train.run(train.parse(MESH_TRAIN_ARGS), mesh=mesh)
+            t1 = time.perf_counter()
+            off = train.run(train.parse(MESH_TRAIN_ARGS))
+            t2 = time.perf_counter()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    err = max(abs(a / b - 1) for a, b in zip(on.losses, off.losses))
+    if err > MESH_LOSS_TOL:
+        raise AssertionError(f"mesh (b): losses {on.losses} on the mesh, "
+                             f"{off.losses} without")
+    say(card, f"mesh (b) launch.train.run through make_dev_mesh(1, 1), "
+              f"{TRAIN_ARCH} full width {TRAIN_AGREE_LAYERS} layers, 3 "
+              f"steps: losses {on.losses} vs {off.losses} without a mesh "
+              f"(max relative difference {err:.3g}, tol {MESH_LOSS_TOL}); "
+              f"{t1 - t0:.2f} s / {t2 - t1:.2f} s")
+    out["train_loss_err"] = err
+    del on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_predict_and_measure(card, dev, out):
+    """(c) The dry run's prediction of phase_train's timed cell (gemma2-2b,
+    seq 128 x batch 8, one microbatch) on a one-device "cuda" mesh under
+    FakeTensorMode, then the same ``build_train_fn`` step for real on the
+    card: the peak device memory of one step against the predicted
+    arguments + temp + outputs (within MESH_MEMORY_TOL), the FLOPs counted
+    by the same ``StepCounter`` (equal), and ms a step against the
+    roofline's ``step_time`` (a finding, no limit)."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, DataState, \
+        SyntheticPipeline
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import lm
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    mesh = mesh_lib.make_dev_mesh(1, 1)
+    cfg = configs.get(TRAIN_ARCH).config
+    shape = configs.ShapeConfig(*MESH_CELL)
+    t0 = time.perf_counter()
+    pred = dryrun.run_cell(TRAIN_ARCH, shape, mesh=mesh, cfg=cfg,
+                           microbatches=MESH_MICROBATCHES)
+    fake_s = time.perf_counter() - t0
+    mem = pred["memory"]
+    predicted = mem["argument_bytes"] + mem["temp_bytes"] + \
+        mem["output_bytes"]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args = train.parse(["--arch", TRAIN_ARCH, "--seq", str(shape.seq_len),
+                        "--batch", str(shape.global_batch)])
+    pipe = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=shape.seq_len,
+                                        global_batch=shape.global_batch))
+    batch = train.make_batch(cfg, args, *pipe.batch(DataState()), dev)
+    model = lm.init_params(cfg, seed=0, device=dev)
+    fn, fargs, tensors = dryrun.place_cell(
+        cfg, shape, mesh, dev, batch=batch, model=model,
+        microbatches=MESH_MICROBATCHES)
+    del model, batch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, counter, real_mem = dryrun.count_step(fn, fargs, tensors)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    marks = []
+    for _ in range(MESH_TIMED_STEPS):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        with implicit_replication():
+            fn(*fargs)
+        e1.record()
+        marks.append((e0, e1))
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in marks]
+    step_ms = statistics.median(ms)
+    rf = pred["roofline"]
+    mem_err = abs(predicted - peak) / peak
+    say(card, f"mesh (c) dry run of {TRAIN_ARCH} {shape.name} (seq "
+              f"{shape.seq_len} x batch {shape.global_batch}, "
+              f"{MESH_MICROBATCHES} microbatch) on a "
+              f"one-device cuda mesh under FakeTensorMode in {fake_s:.1f} s:"
+              f" arguments {mem['argument_bytes']} B + temp "
+              f"{mem['temp_bytes']} B + outputs {mem['output_bytes']} B = "
+              f"{predicted} B; FLOPs {pred['counted']['flops']}; roofline "
+              f"step_time {rf['step_time'] * 1e3:.3f} ms "
+              f"({rf['bottleneck']}), roofline_fraction "
+              f"{rf['roofline_fraction']:.4f}")
+    say(card, f"mesh (c) the same step on the card: peak "
+              f"max_memory_allocated {peak} B over the {base} B in use "
+              f"before (predicted / measured {predicted / peak:.4f}, error "
+              f"{mem_err:.4f}, tol {MESH_MEMORY_TOL}); counted FLOPs "
+              f"{counter.flops} (the dry run's {pred['counted']['flops']}); "
+              f"counted step {counted_s:.1f} s; ms a step (CUDA events, "
+              f"{MESH_TIMED_STEPS} after the counted one) {ms} -> median "
+              f"{step_ms:.3f}; / roofline step_time "
+              f"{step_ms / (rf['step_time'] * 1e3):.2f}x")
+    out.update(predicted_bytes=predicted, peak_bytes=peak,
+               memory_error=mem_err, flops_fake=pred["counted"]["flops"],
+               flops_real=counter.flops, step_ms=ms,
+               roofline_step_ms=rf["step_time"] * 1e3,
+               roofline_fraction=rf["roofline_fraction"],
+               fake_run_s=fake_s, real_memory=real_mem)
+    if mem_err > MESH_MEMORY_TOL:
+        raise AssertionError(f"mesh (c): predicted {predicted} B, measured "
+                             f"peak {peak} B")
+    if counter.flops != pred["counted"]["flops"]:
+        raise AssertionError(f"mesh (c): FLOPs {counter.flops} on the card, "
+                             f"{pred['counted']['flops']} predicted")
+    del fn, fargs, tensors
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def start_dryrun_cells() -> list:
+    """(d) One ``python -m repro_torch.launch.dryrun`` per production cell
+    on the fake 16x16 "cuda" mesh, started now and read by
+    ``finish_dryrun_cells``."""
+    os.makedirs(MESH_DRYRUN_OUT, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    procs = []
+    for arch, shape in MESH_DRYRUN_CELLS:
+        path = os.path.join(MESH_DRYRUN_OUT, f"{arch}_{shape}.json")
+        if os.path.exists(path):
+            os.remove(path)
+        log = open(path[:-5] + ".log", "w")
+        procs.append((arch, shape, path, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--skip-multi-pod", "--mesh-device",
+             "cuda", "--out", path], env=env, stdout=log,
+            stderr=subprocess.STDOUT), time.perf_counter()))
+    return procs
+
+
+def finish_dryrun_cells(card, procs, out, timeout=600):
+    for arch, shape, path, log, proc, t0 in procs:
+        try:
+            rc = proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        with open(path) as f:
+            rec = json.load(f)[f"{arch}|{shape}|single"]
+        if rc != 0 or rec.get("status") != "ok":
+            raise AssertionError(f"mesh (d) {arch} {shape}: rc {rc}, "
+                                 f"{rec.get('error')}")
+        m = rec["memory"]
+        gib = (m["argument_bytes"] + m["temp_bytes"] + m["output_bytes"]) \
+            / 2**30
+        r = rec["roofline"]
+        say(card, f"mesh (d) dry run {arch} {shape} on the fake 16x16 "
+                  f"{rec['mesh_device']} mesh: ok in {rec['compile_s']} s "
+                  f"(process {time.perf_counter() - t0:.1f} s wall), "
+                  f"{gib:.2f} GiB per device (arguments "
+                  f"{m['argument_bytes'] / 2**30:.2f}, temp "
+                  f"{m['temp_bytes'] / 2**30:.2f}), collectives "
+                  f"{r['coll_breakdown']}, step_time {r['step_time']:.4f} s "
+                  f"({r['bottleneck']})")
+        out[f"dryrun_{arch}_{shape}"] = {
+            "s": rec["compile_s"], "gib_per_device": gib,
+            "coll_breakdown": r["coll_breakdown"],
+            "step_time": r["step_time"], "bottleneck": r["bottleneck"]}
+
+
+def phase_mesh_dryrun(card, trace, dev, results, out):
+    """The mesh slice on one card: (d)'s dry-run cells start in
+    subprocesses, then (a) the sharded cache on a one-device mesh, (b) the
+    trainer through a one-device mesh and (c) the dry run's prediction
+    held against the real step, all on one one-rank NCCL group (an
+    in-memory store: no rendezvous); then (d) is read.  The group is
+    destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+
+    procs = start_dryrun_cells()
+    try:
+        mesh_lib.ensure_group(1, "cuda")
+        try:
+            t0 = time.perf_counter()
+            mesh_replay(card, trace, dev, results, out)
+            t1 = time.perf_counter()
+            mesh_train(card, out)
+            t2 = time.perf_counter()
+            mesh_predict_and_measure(card, dev, out)
+            t3 = time.perf_counter()
+        finally:
+            dist.destroy_process_group()
+        finish_dryrun_cells(card, procs, out)
+    finally:
+        for *_, log, proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    say(card, f"mesh phase parts: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, "
+              f"(c) {t3 - t2:.1f} s, (d) waited "
+              f"{time.perf_counter() - t3:.1f} s more")
 
 
 # ---------------------------------------------------------------------------
@@ -4174,7 +4540,10 @@ def main() -> int:
     print(card)
     say(card, f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"device {kind} x{torch.cuda.device_count()}")
-    phase_build(card)
+    # the kernels build while the set-up and training run (training
+    # launches none of them)
+    builder = concurrent.futures.ThreadPoolExecutor(1)
+    build = builder.submit(phase_build, card)
 
     state_bytes = NUM_SETS * WAYS * 4
     say(card, f"full-size config: capacity {NUM_SETS * WAYS} entries = "
@@ -4230,7 +4599,14 @@ def main() -> int:
             replaces="src/repro/kernels/paged_attention.py:103",
             exact="within tolerance"),
     }
-    serve, train_out = {}, {}
+    serve, train_out, mesh_out = {}, {}, {}
+    t0 = time.perf_counter()
+    phase_train(card, dev, train_out)
+    say(card, f"phase_train done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    build.result()
+    builder.shutdown()
+    say(card, f"waited {time.perf_counter() - t0:.1f} s more for the build")
     for phase, args in (
             (phase_probe_kernels, (trace, dev, results)),
             (phase_replay_kernel, (trace, ttl_trace, dev, results)),
@@ -4253,7 +4629,7 @@ def main() -> int:
             (phase_paged_attention_kernel, (dev, results, serve)),
             (phase_paged_attention_timing, (dev, results, serve)),
             (phase_families, (dev, results, serve)),
-            (phase_train, (dev, train_out)),
+            (phase_mesh_dryrun, (trace, dev, results, mesh_out)),
             (phase_eval, (dev, results))):
         t0 = time.perf_counter()
         phase(card, *args)
@@ -4286,6 +4662,7 @@ def main() -> int:
               f"script drives card 0")
     say(card, f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"train": train_out}))
+    print(json.dumps({"mesh": mesh_out}, default=str))
     print(card)
     print(json.dumps({"kernels": kernels}))
     # the script drives one card, whatever the machine holds

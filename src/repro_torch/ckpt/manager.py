@@ -24,6 +24,13 @@ numpy has no bfloat16, so a bf16 leaf is saved as its ``uint16`` view with
 ``bfloat16`` named in the manifest and restored bit for bit.
 ``restore(like_tree)`` copies into ``like_tree``'s tensors in place (the
 addresses a captured CUDA graph reads stay valid) and returns it.
+
+On a mesh (the trainer's DTensors) every rank calls ``save`` and
+``restore``: a DTensor leaf is saved as its full tensor (gathered on every
+rank; rank 0 writes the files), and restored onto the placements of the
+``like_tree``'s DTensor, each rank copying its own slice of the full
+array.  So a checkpoint saved on one mesh, or on one device, restores onto
+another mesh: the elastic restart.
 """
 from __future__ import annotations
 
@@ -34,7 +41,9 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 _BF16 = "bfloat16"
 
@@ -63,9 +72,17 @@ def flatten(tree, prefix: str = "") -> list:
                     " not a tensor, module, dataclass or dict")
 
 
+def _writer() -> bool:
+    """Rank 0 writes (every process, off a process group)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_numpy(t: torch.Tensor) -> tuple:
-    """-> (array, dtype name) with bf16 as its uint16 view."""
+    """-> (array, dtype name) with bf16 as its uint16 view; a DTensor as
+    its full tensor."""
     t = t.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).cpu().numpy().view(np.uint16), _BF16
     arr = t.cpu().numpy()
@@ -83,9 +100,14 @@ def save(root: str, step: int, tree, extra: dict | None = None,
     """Atomically persist a tree of tensors.  Returns the committed
     directory, or with ``commit=False`` the ``.tmp`` one: every leaf lands
     on disk but the atomic rename is skipped (a crash before the commit)."""
-    os.makedirs(root, exist_ok=True)
     final = os.path.join(root, f"step_{step:09d}")
     tmp = final + ".tmp"
+    if not _writer():
+        for _, leaf in flatten(tree):   # take part in every leaf's gather
+            _to_numpy(leaf)
+        dist.barrier()                  # rank 0 has committed
+        return final if commit else tmp
+    os.makedirs(root, exist_ok=True)
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
@@ -101,13 +123,16 @@ def save(root: str, step: int, tree, extra: dict | None = None,
                 "shapes": shapes, "dtypes": dtypes, "extra": extra or {}}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
-    if not commit:
-        return tmp  # crash before the rename: the checkpoint never happened
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)  # atomic commit
-    _gc(root, keep_last)
-    return final
+    if commit:
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)  # atomic commit
+        _gc(root, keep_last)
+    if dist.is_initialized():
+        dist.barrier()
+    # without the commit the rename is skipped: a crash before it, so the
+    # checkpoint never happened
+    return final if commit else tmp
 
 
 def latest_step(root: str) -> int | None:
@@ -152,8 +177,14 @@ def restore(root: str, step: int, like_tree):
                 f"{tuple(dst.shape)}")
     with torch.no_grad():     # a trainer's parameters require grad
         for i, (path, dst) in enumerate(flat):
-            arr = np.load(os.path.join(d, _leaf_name(i)))
-            dst.copy_(_from_numpy(arr, manifest["dtypes"][i]))
+            src = _from_numpy(np.load(os.path.join(d, _leaf_name(i))),
+                              manifest["dtypes"][i])
+            if isinstance(dst, DTensor):   # this rank's slice, no collective
+                src = distribute_tensor(
+                    src.to(dst.device), dst.device_mesh, dst.placements,
+                    src_data_rank=None).to_local()
+                dst = dst.to_local()
+            dst.copy_(src)
     return like_tree, manifest["extra"]
 
 

@@ -39,8 +39,19 @@ returns new tensors and has no in-place option to switch); the
 reference's ``trace_counts``
 count XLA compilations, which the port does not have, so the reference's
 compile-count tests (``tests/test_router.py:177,203``) have no port
-counterpart; a ``mesh`` (one shard per device) is refused: multi-GPU
-execution is ROADMAP Queue A item 14.
+counterpart.
+
+Mesh execution (``ShardedCache(cfg, mesh)``, a ``DeviceMesh`` with a
+``"sets"`` axis of exactly ``num_shards`` devices): SPMD, one process a
+device, each holding shard ``rank`` (its state is that shard alone,
+``[1, S/D, k]``).  Every rank routes the whole replicated batch, takes its
+own bucket and runs its local backend on it (on ``cuda``: kernel 2 per
+``access``, and kernel 1 under TinyLFU); one ``all_gather_into_tensor`` of
+the bucketed answers per call precedes the unscatter, so every rank holds
+the whole batch's answers.  The cache operations issue no collective: the
+paper's "Alice and Bob never synchronize".  A ``replay`` adds one
+all-reduce of the hit count at its end.  ``resident=True`` refuses a
+mesh, as in the reference.
 """
 from __future__ import annotations
 
@@ -49,15 +60,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import admission, router
 from repro_torch.core.admission import TinyLFUConfig, TinyLFUState
 from repro_torch.core.backend import HIER_TINYLFU, _vals, make_backend
 from repro_torch.core.kway import KWayConfig, KWayState
-
-MESH_TODO = ("mesh execution (one shard per device) is not ported yet "
-             "(ROADMAP Queue A item 14); shards run on one card")
-
 
 @dataclasses.dataclass(frozen=True)
 class ShardedConfig:
@@ -118,7 +126,8 @@ def stack_shards(trees: list):
 
 
 class ShardedCache:
-    """A K-way cache whose set axis is sharded D ways on one card.
+    """A K-way cache whose set axis is sharded D ways: on one card, or one
+    shard a device over ``mesh``'s ``sets`` axis.
 
     ``get`` / ``put`` / ``peek_victims`` follow the CacheBackend contract
     closely enough for ``serve/engine.py`` to use a ShardedCache as its
@@ -129,9 +138,22 @@ class ShardedCache:
     traceable = True
 
     def __init__(self, cfg: ShardedConfig, mesh=None, device=None):
-        if mesh is not None:
-            raise ValueError(MESH_TODO)
         self.cfg = cfg
+        self.mesh = mesh
+        self.group = None
+        if mesh is not None:
+            names = getattr(mesh, "mesh_dim_names", None) or ()
+            if "sets" not in names or \
+                    mesh.size(names.index("sets")) != cfg.num_shards:
+                shape = dict(zip(names, getattr(mesh, "shape", ())))
+                raise ValueError(
+                    "mesh must carry a 'sets' axis of exactly num_shards "
+                    f"devices (one shard per device); got axes "
+                    f"{shape} for num_shards={cfg.num_shards}")
+            self.group = mesh.get_group("sets")
+            self.rank = mesh.get_local_rank("sets")
+            device = (torch.device("cuda", torch.cuda.current_device())
+                      if mesh.device_type == "cuda" else mesh.device_type)
         self.backend = make_backend(cfg.backend, cfg.local, device)
         if not self.backend.traceable:
             raise ValueError(
@@ -140,14 +162,56 @@ class ShardedCache:
         self.device = self.backend.device
 
     # ------------------------------------------------------------- plumbing
+    def _shards(self) -> list:
+        """(shard id, index in the held state) of the shards this process
+        holds: all D on one device, its own on a mesh."""
+        if self.mesh is None:
+            return [(i, i) for i in range(self.cfg.num_shards)]
+        return [(self.rank, 0)]
+
+    def _collect(self, parts: list) -> torch.Tensor:
+        """Per-held-shard answers (each [capacity] or [F, capacity]) ->
+        [D, ...] for every shard: a stack on one device, one
+        ``all_gather_into_tensor`` over the ``sets`` axis on a mesh."""
+        mine = torch.stack(parts)
+        if self.mesh is None:
+            return mine
+        out = torch.empty((self.cfg.num_shards,) + tuple(mine.shape[1:]),
+                          dtype=mine.dtype, device=mine.device)
+        dist.all_gather_into_tensor(out, mine.contiguous(), group=self.group)
+        return out
+
+    def _gather_answers(self, outs: list) -> tuple:
+        """Per-held-shard tuples of [capacity] answers -> one [D, capacity]
+        tensor per field: a stack per field on one device, packed into one
+        int32 buffer for the gather on a mesh."""
+        if self.mesh is None:
+            return tuple(torch.stack(c) for c in zip(*outs))
+        dtypes = [t.dtype for t in outs[0]]
+        packed = self._collect([torch.stack([t.to(torch.int32) for t in o])
+                                for o in outs])
+        return tuple(packed[:, j].to(dt) for j, dt in enumerate(dtypes))
+
     def init(self, *, ttl: bool = False) -> KWayState:
         st = self.backend.init(ttl=ttl)
-        return stack_shards([st] * self.cfg.num_shards)
+        return stack_shards([st] * len(self._shards()))
 
     def init_sketches(self, tinylfu: TinyLFUConfig) -> TinyLFUState:
-        """Per-shard TinyLFU sketches, stacked on the shard axis [D, ...]."""
+        """Per-shard TinyLFU sketches, stacked on the shard axis [D, ...]
+        (on a mesh, this rank's alone)."""
         sk = admission.make_sketch(tinylfu, self.device)
-        return stack_shards([sk] * self.cfg.num_shards)
+        return stack_shards([sk] * len(self._shards()))
+
+    def gather_state(self, tree):
+        """A held state (or sketch stack) -> every shard's, [D, ...]: the
+        state itself on one device, each lane all-gathered on a mesh."""
+        if self.mesh is None or tree is None:
+            return tree
+        return dataclasses.replace(tree, **{
+            f.name: (self.gather_state(v) if dataclasses.is_dataclass(v)
+                     else None if v is None else self._collect([v[0]]))
+            for f in dataclasses.fields(tree)
+            for v in (getattr(tree, f.name),)})
 
     def owner_of(self, keys) -> np.ndarray:
         """Owning shard per key: the high bits of the global set index."""
@@ -191,19 +255,19 @@ class ShardedCache:
 
     def _step(self, tinylfu, two_phase, keys, vals, enabled, state, sketches,
               capacity, ttls=None):
-        """Route one batch, run every shard on its bucket.
-        -> (state', sketches', plan, per-shard outputs [D] of
-        (hit, vals, ek, ev), bucket mask [D, capacity])."""
+        """Route one batch, run every held shard on its bucket.
+        -> (state', sketches', plan, per-held-shard outputs of (hit, vals,
+        ek, ev), bucket mask [D, capacity])."""
         plan = self._route(keys, enabled, capacity)
         kb = self._bucket(plan, keys, capacity, 0)
         vb = self._bucket(plan, vals, capacity, 0)
         eb = router.bucket_mask(plan, self.cfg.num_shards, capacity)
         tb = None if ttls is None else self._bucket(plan, ttls, capacity, 0)
         states, sks, outs = [], [], []
-        for i in range(self.cfg.num_shards):
+        for i, h in self._shards():
             (st, hit, out, ek, ev), sk = self._local_access(
                 tinylfu, two_phase, kb[i], vb[i], eb[i],
-                shard_of(sketches, i), shard_of(state, i),
+                shard_of(sketches, h), shard_of(state, h),
                 None if tb is None else tb[i])
             states.append(st)
             sks.append(sk)
@@ -230,7 +294,7 @@ class ShardedCache:
         state, sk, plan, outs, _ = self._step(
             tinylfu, two_phase, keys, vals, self._mask(None, b), state,
             sketches if tinylfu is not None else None, capacity)
-        hit, out, ek, ev = (torch.stack(c) for c in zip(*outs))
+        hit, out, ek, ev = self._gather_answers(outs)
         ret = (state, router.unscatter(plan, hit, False),
                router.unscatter(plan, out, -1),
                router.unscatter(plan, ek, 0),
@@ -331,6 +395,10 @@ class ShardedCache:
                 raise ValueError(
                     "resident replay is the fused access path; two_phase "
                     "is the chunked-scan oracle — use resident=False")
+            if self.mesh is not None:
+                raise ValueError(
+                    "resident replay drives one kernel per shard from the "
+                    "host; run mesh execution through the chunked path")
             if hierarchy is not None and hierarchy.enabled and \
                     tinylfu is not None:
                 raise ValueError(HIER_TINYLFU)
@@ -351,9 +419,11 @@ class ShardedCache:
                 sketches, capacity, None if tt is None else tt[t])
             # hits are counted on the buckets: summing the bucketed lanes
             # equals summing the request lanes
-            for i, (hit, _, _, _) in enumerate(outs):
+            for (i, _), (hit, _, _, _) in zip(self._shards(), outs):
                 hits = hits + (hit & eb[i]).sum()
             defers = defers + plan.deferred.sum()
+        if self.mesh is not None:     # every shard's hits, once a replay
+            dist.all_reduce(hits, group=self.group)
         return int(hits), int(defers), state
 
     # ----------------------------------------------- CacheBackend-ish ops
@@ -365,16 +435,15 @@ class ShardedCache:
         plan = self._route(qkeys, self._mask(enabled, b), capacity)
         kb = self._bucket(plan, qkeys, capacity, 0)
         eb = router.bucket_mask(plan, self.cfg.num_shards, capacity)
-        states, hits, vals = [], [], []
-        for i in range(self.cfg.num_shards):
-            st, hit, v = self.backend.get(shard_of(state, i), kb[i],
+        states, outs = [], []
+        for i, h in self._shards():
+            st, hit, v = self.backend.get(shard_of(state, h), kb[i],
                                           enabled=eb[i])
             states.append(st)
-            hits.append(hit)
-            vals.append(v)
-        return (stack_shards(states),
-                router.unscatter(plan, torch.stack(hits), False),
-                router.unscatter(plan, torch.stack(vals), -1))
+            outs.append((hit, v))
+        hit, v = self._gather_answers(outs)
+        return (stack_shards(states), router.unscatter(plan, hit, False),
+                router.unscatter(plan, v, -1))
 
     def put(self, state: KWayState, qkeys, qvals, admit=None, enabled=None,
             *, slot_value: bool = False):
@@ -390,16 +459,16 @@ class ShardedCache:
         ab = self._bucket(plan, self._mask(admit, b), capacity, False)
         eb = router.bucket_mask(plan, self.cfg.num_shards, capacity)
         states, outs = [], []
-        for i in range(self.cfg.num_shards):
+        for i, h in self._shards():
             st, ek, ev, ss, sw = self.backend.put(
-                shard_of(state, i), kb[i], vb[i], admit=ab[i],
+                shard_of(state, h), kb[i], vb[i], admit=ab[i],
                 enabled=eb[i], slot_value=slot_value)
             if slot_value:
                 st = _lift_slot_ids(st, ss, sw, i * s_local, ways)
             gs = torch.where(ss >= 0, ss + i * s_local, -1)
             states.append(st)
             outs.append((ek, ev, gs, sw))
-        ek, ev, gs, sw = (torch.stack(c) for c in zip(*outs))
+        ek, ev, gs, sw = self._gather_answers(outs)
         return (stack_shards(states), router.unscatter(plan, ek, 0),
                 router.unscatter(plan, ev, False),
                 router.unscatter(plan, gs, -1),
@@ -411,19 +480,18 @@ class ShardedCache:
         capacity = self.cfg.capacity_for(b)
         plan = self._route(qkeys, self._mask(None, b), capacity)
         kb = self._bucket(plan, qkeys, capacity, 0)
-        vks, vvs = [], []
-        for i in range(self.cfg.num_shards):
-            vk, vv = self.backend.peek_victims(shard_of(state, i), kb[i])
-            vks.append(vk)
-            vvs.append(vv)
-        return (router.unscatter(plan, torch.stack(vks), 0),
-                router.unscatter(plan, torch.stack(vvs), False))
+        outs = [self.backend.peek_victims(shard_of(state, h), kb[i])
+                for i, h in self._shards()]
+        vk, vv = self._gather_answers(outs)
+        return (router.unscatter(plan, vk, 0),
+                router.unscatter(plan, vv, False))
 
     def global_view(self, state: KWayState) -> KWayState:
         """Reassemble the stacked shard states into the equivalent global
         state (sets of shard d map to global sets [d*S/D, (d+1)*S/D)).  The
         clock is summed: a diagnostic view; policy metadata keeps its
-        shard-local timestamps."""
+        shard-local timestamps.  On a mesh every shard is gathered first."""
+        state = self.gather_state(state)
         s, k = self.cfg.cache.num_sets, self.cfg.cache.ways
 
         def merge(t):

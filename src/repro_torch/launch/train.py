@@ -19,9 +19,21 @@ posture, as in the reference:
     (after the gradients) is retried on partly updated state; a failure in
     the forward or backward leaves the model as it was.
 
-One device: ``--data`` / ``--model`` above 1 raise, since the mesh is
-ROADMAP Queue A item 14.  ``run`` returns a ``TrainRun`` with every step's
-loss; ``main`` returns the exit code.
+On a mesh (``--data D --model M`` above 1, one process a device under
+``torchrun``, world = D x M; or ``run(args, mesh=...)``): the parameters
+are DTensors placed by ``dist.sharding.param_shardings``, the optimizer
+state by ``adamw.state_shardings(..., model)`` (ZeRO-3), each batch by
+``input_shardings``, and the step runs under ``implicit_replication()``.
+Every rank draws the same weights and batches and keeps its own slices.
+A checkpoint holds full tensors (rank 0 writes them) and restores onto
+whatever mesh the relaunch got: the elastic restart.  With one device
+and no mesh the launcher is the plain one-device trainer.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch mamba2-130m --smoke --steps 6 --data 2 --model 2 --device cpu
+
+``run`` returns a ``TrainRun`` with every step's loss; ``main`` returns
+the exit code.
 """
 from __future__ import annotations
 
@@ -33,18 +45,18 @@ import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import configs
 from repro_torch.ckpt import manager as ckpt
 from repro_torch.core.backend import resolve_device
 from repro_torch.data.pipeline import DataConfig, DataState, SyntheticPipeline
+from repro_torch.dist import sharding as shd
+from repro_torch.launch.mesh import make_dev_mesh
 from repro_torch.models import lm
 from repro_torch.optim import adamw
 from repro_torch.train.step import TrainConfig, make_train_step
-
-MESH_TODO = ("a mesh of more than one device (--data / --model above 1) "
-             "waits for ROADMAP Queue A item 14")
-
 
 def parse(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
@@ -109,16 +121,36 @@ class TrainRun:
     opt_state: dict
 
 
-def run(args: argparse.Namespace) -> TrainRun:
-    if args.data > 1 or args.model > 1:
-        raise ValueError(MESH_TODO)
+def _scalar(t) -> float:
+    return float(t.full_tensor() if isinstance(t, DTensor) else t)
+
+
+def run(args: argparse.Namespace, mesh=None) -> TrainRun:
+    """Train per ``args``; on ``mesh`` (None: a (data, model) dev mesh
+    when either is above 1, else no mesh) with DTensor parameters."""
     dev = resolve_device(args.device)
+    if mesh is None and (args.data > 1 or args.model > 1):
+        mesh = make_dev_mesh(args.data, args.model, device_type=dev.type)
+    if mesh is not None and dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
     spec = configs.get(args.arch)
     cfg = spec.smoke if args.smoke else spec.config
     tcfg = TrainConfig(optimizer=optimizer_config(args))
 
     model = lm.init_params(cfg, seed=args.seed, device=dev)
-    opt_state = adamw.init(model)
+    shardings = None
+    if mesh is not None:
+        pl = shd.param_shardings(cfg, model, mesh)
+        shd.distribute_model(model, mesh, pl)
+        shardings = adamw.state_shardings(pl, mesh, model)
+    opt_state = adamw.init(model, shardings)
+
+    def place(batch):
+        if mesh is None:
+            return batch
+        shape = configs.ShapeConfig("train", args.seq, args.batch, "train")
+        return shd.distribute_tree(
+            batch, mesh, shd.input_shardings(cfg, shape, batch, mesh))
 
     pipe = SyntheticPipeline(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch))
@@ -154,11 +186,12 @@ def run(args: argparse.Namespace) -> TrainRun:
         losses = []
         step = start_step
         while step < args.steps:
-            batch = make_batch(cfg, args, *pipe.batch(dstate), dev)
+            batch = place(make_batch(cfg, args, *pipe.batch(dstate), dev))
             for attempt in range(3):  # step retry loop
                 try:
-                    model, opt_state, metrics = step_fn(model, opt_state,
-                                                        batch)
+                    with implicit_replication():
+                        model, opt_state, metrics = step_fn(
+                            model, opt_state, batch)
                     break
                 except Exception as e:  # noqa: BLE001
                     print(f"step {step} attempt {attempt} failed: {e}")
@@ -167,12 +200,12 @@ def run(args: argparse.Namespace) -> TrainRun:
                         raise
             dstate = pipe.advance(dstate)
             step += 1
-            loss = float(metrics["loss"])
+            loss = _scalar(metrics["loss"])
             losses.append(loss)
             if step % 10 == 0 or step == args.steps:
                 print(f"step {step:5d} loss {loss:.4f} "
-                      f"lr {float(metrics['lr']):.2e} "
-                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"lr {_scalar(metrics['lr']):.2e} "
+                      f"gnorm {_scalar(metrics['grad_norm']):.3f} "
                       f"({(time.time()-t0)/max(step-start_step,1):.2f}s/step)")
             if args.ckpt_dir and step % args.ckpt_every == 0:
                 save(step)

@@ -101,10 +101,10 @@ def attention(p: dict, x, positions, mask=None, kv=None, *, num_heads: int,
     """
     b, s, _ = x.shape
     g = num_heads // num_kv_heads
-    q = (x @ p["wq"]).reshape(b, s, num_heads, head_dim)
+    q = _proj(x, p["wq"]).reshape(b, s, num_heads, head_dim)
     if kv is None:
-        k = (x @ p["wk"]).reshape(b, s, num_kv_heads, head_dim)
-        v = (x @ p["wv"]).reshape(b, s, num_kv_heads, head_dim)
+        k = _proj(x, p["wk"]).reshape(b, s, num_kv_heads, head_dim)
+        v = _proj(x, p["wv"]).reshape(b, s, num_kv_heads, head_dim)
         if use_rope:
             q = rope(q, positions, rope_theta)
             k = rope(k, positions, rope_theta)
@@ -124,15 +124,17 @@ def attention(p: dict, x, positions, mask=None, kv=None, *, num_heads: int,
         if mask is None:
             mask = causal_mask(positions, positions, window=window)
         o = _weighted_values(_attn_weights(q, k, mask, scale, softcap), v)
-    o = o.reshape(b, s, num_heads * head_dim).to(x.dtype)
+    # batch-only before the output projection as well: on a 16-way model
+    # axis DTensor's strategy for the merged product fails without it
+    o = batch_only(o.reshape(b, s, num_heads * head_dim).to(x.dtype))
     return o @ p["wo"], (k, v)
 
 
 def cross_kv(p: dict, enc_out, *, num_kv_heads: int, head_dim: int):
     """Cross-attention K/V [B, T, KVH, D] of the encoder output (no RoPE)."""
     b, t, _ = enc_out.shape
-    k = (enc_out @ p["wk"]).reshape(b, t, num_kv_heads, head_dim)
-    v = (enc_out @ p["wv"]).reshape(b, t, num_kv_heads, head_dim)
+    k = _proj(enc_out, p["wk"]).reshape(b, t, num_kv_heads, head_dim)
+    v = _proj(enc_out, p["wv"]).reshape(b, t, num_kv_heads, head_dim)
     return k, v
 
 
@@ -154,7 +156,7 @@ def decode_attention(p: dict, x, pos, k_cache, v_cache, *, num_heads: int,
     t = k_cache.shape[1]
     g = num_heads // num_kv_heads
     scale = head_dim ** -0.5
-    q = (x @ p["wq"]).reshape(b, 1, num_heads, head_dim)
+    q = _proj(x, p["wq"]).reshape(b, 1, num_heads, head_dim)
     if not is_cross:
         q = rope(q, pos[:, None], rope_theta)
     q = q.reshape(b, 1, num_kv_heads, g, head_dim)
@@ -195,8 +197,8 @@ def project_kv_step(p: dict, x, pos, *, num_kv_heads: int, head_dim: int,
                     rope_theta: float = 10000.0):
     """K/V [B, 1, KVH, D] of the current decode token (K roped at ``pos``)."""
     b = x.shape[0]
-    k = (x @ p["wk"]).reshape(b, 1, num_kv_heads, head_dim)
-    v = (x @ p["wv"]).reshape(b, 1, num_kv_heads, head_dim)
+    k = _proj(x, p["wk"]).reshape(b, 1, num_kv_heads, head_dim)
+    v = _proj(x, p["wv"]).reshape(b, 1, num_kv_heads, head_dim)
     return rope(k, pos[:, None], rope_theta), v
 
 
@@ -262,7 +264,10 @@ def moe_route(p: dict, x, *, num_experts: int, top_k: int,
 def moe(p: dict, x, *, num_experts: int, top_k: int,
         capacity_factor: float = 1.25, ff_shards: int = 1):
     """Top-k MoE with capacity-bounded dispatch, each batch row its own
-    group (GShard), as the reference's ``moe``.
+    group (GShard), as the reference's ``moe``.  On a mesh (a batch-sharded
+    DTensor ``x``) the dispatch and the combine run on each rank's own
+    rows (a row's pairs never leave its group) and only the expert
+    products run as DTensor ops on the weights' placements.
 
     ``x`` [B, S, d]; expert weights in the virtual-expert layout ``wi``,
     ``wg`` [E * ff_shards, d, d_ff / ff_shards], ``wo`` [E * ff_shards,
@@ -274,10 +279,12 @@ def moe(p: dict, x, *, num_experts: int, top_k: int,
     sink row past the buffers and reads a weight of zero, so the dispatch
     has fixed shapes and no host sync (a CUDA graph captures it).
     -> [B, S, d] in x's dtype."""
+    xd = batch_only(x)
+    idx, vals, rank, keep, cap = (_local(t) for t in moe_route(
+        p, xd, num_experts=num_experts, top_k=top_k,
+        capacity_factor=capacity_factor, ff_shards=ff_shards))
+    x = _local(xd)
     b, s, d = x.shape
-    idx, vals, rank, keep, cap = moe_route(
-        p, x, num_experts=num_experts, top_k=top_k,
-        capacity_factor=capacity_factor, ff_shards=ff_shards)
     k = idx.shape[-1]
     e = num_experts * ff_shards
     rows = torch.arange(b, device=x.device)[:, None, None]
@@ -286,9 +293,9 @@ def moe(p: dict, x, *, num_experts: int, top_k: int,
     buf = x.new_zeros(sink + 1, d)
     buf[torch.where(keep, base + rank, sink).reshape(-1)] = \
         x[:, :, None, :].expand(b, s, k, d).reshape(-1, d)
-    hb = buf[:sink].view(e, b * cap, d)
+    hb = _like(buf[:sink].view(e, b * cap, d), xd, 1)
     h = silu(torch.bmm(hb, p["wg"])) * torch.bmm(hb, p["wi"])
-    out = torch.bmm(h, p["wo"]).reshape(sink, d)
+    out = _local(batch_only(torch.bmm(h, p["wo"]), 1)).reshape(sink, d)
     # a dropped pair reads slot 0 of its buffer under a zero weight, as in
     # the reference
     got = out[torch.where(keep, base + rank, base).reshape(-1)]
@@ -296,8 +303,8 @@ def moe(p: dict, x, *, num_experts: int, top_k: int,
     # over k stay float32 until the one rounding at the end (XLA fuses the
     # reference's bf16 product into its float32 reduction)
     w = (vals.to(x.dtype) * keep.to(x.dtype)).float()
-    return (got.reshape(b, s, k, d).float() * w[..., None]).sum(dim=2) \
-        .to(x.dtype)
+    return _like((got.reshape(b, s, k, d).float() * w[..., None]).sum(dim=2)
+                 .to(x.dtype), xd, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -321,7 +328,7 @@ class SSMDims:
 
 
 def _split_zxbcdt(p, u, dims: SSMDims):
-    zxbcdt = u @ p["in_proj"]
+    zxbcdt = _proj(u, p["in_proj"])
     di, n = dims.d_inner, dims.state
     return (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * n],
             zxbcdt[..., 2 * di + 2 * n:])
@@ -354,6 +361,56 @@ def _causal_conv(xbc, conv_w, conv_state=None):
 def _softplus(x):
     """``jax.nn.softplus``: logaddexp(x, 0)."""
     return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _local(t):
+    """A DTensor's local shard; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _like(t, like, batch_dim: int):
+    """A local tensor -> a DTensor sharded on ``batch_dim`` as ``like``
+    (batch-sharded on dim 0) is, replicated otherwise; ``t`` itself when
+    ``like`` is a plain tensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(like, DTensor):
+        return t
+    return DTensor.from_local(
+        t, like.device_mesh,
+        [Shard(batch_dim) if p == Shard(0) else Replicate()
+         for p in like.placements], run_check=False)
+
+
+def batch_only(x, batch_dim: int = 0):
+    """A DTensor -> the same values sharded on its batch dimension over the
+    data axes alone, replicated over every other mesh axis (an all-reduce
+    or all-gather, as an SPMD partitioner inserts one); a plain tensor as
+    it is.  The
+    attention and SSD einsums merge the batch with the head dimensions,
+    and DTensor has no strategy for a merged dimension that two mesh axes
+    shard (its ``_StridedShard`` fails in ``bmm``), so these cores run
+    batch-sharded between their projections (the gradients too: a
+    redistribution's backward restores its input's placements)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.dist.sharding import data_axes
+
+    names, axes = x.device_mesh.mesh_dim_names, data_axes(x.device_mesh)
+    return x.redistribute(x.device_mesh, [
+        p if p == Shard(batch_dim) and names[m] in axes
+        else Replicate() for m, p in enumerate(x.placements)])
+
+
+def _proj(x, w):
+    """``x @ w`` brought to batch-only sharding before its last dimension
+    is split into heads (a model-sharded dimension of fewer heads than the
+    axis cannot be unflattened)."""
+    return batch_only(x @ w)
 
 
 def ssd_scan(p: dict, u, dims: SSMDims, chunk: int = 128, init_state=None):
@@ -412,7 +469,7 @@ def ssd_scan(p: dict, u, dims: SSMDims, chunk: int = 128, init_state=None):
     y = (y_intra + y_inter).reshape(b, s, nh, hp)
     y = (y + p["D"].float()[None, None, :, None] * xh).reshape(b, s, di)
     y = rms_norm(y * silu(z.float()), p["norm"])
-    return y.to(u.dtype) @ p["out_proj"], (state, conv_state)
+    return batch_only(y.to(u.dtype)) @ p["out_proj"], (state, conv_state)
 
 
 def ssd_step(p: dict, u, state, dims: SSMDims):

@@ -17,6 +17,11 @@ Weights are bf16; the MoE router, the SSD's ``A_log`` / ``D`` /
 ``dt_bias`` / ``norm`` and the norm scales are float32 (the norms scale
 by ``1 + w``).
 
+On a mesh (DTensor weights, ``dist.sharding``) the residual stream stays
+sharded on the batch alone: each sublayer's output is brought back to
+that (``layers.batch_only``, the all-reduce or all-gather an SPMD
+partitioner puts after a row- or column-sharded product).
+
 Numerics follow the reference as XLA compiles its layer loop: a bf16 op
 whose result is cast straight to float32 keeps its float32 value (the
 residual sum that a norm reads), every other bf16 op rounds.  The paged
@@ -27,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
@@ -108,7 +114,7 @@ class Block(nn.Module):
         """The cross-attention sublayer on the float32 sum ``xm`` ->
         the next float32 sum."""
         hc = L.rms_norm(xm, self.ln_cross, cfg.norm_eps, dtype=dtype)
-        return xm.to(dtype).float() + attend(hc).float()
+        return xm.to(dtype).float() + L.batch_only(attend(hc)).float()
 
     def seq(self, cfg: ModelConfig, x, positions, window: int,
             enc_out=None, enc_mask=None):
@@ -123,7 +129,7 @@ class Block(nn.Module):
             mix = y if mix is None else mix + y
         if self.attn is not None and self.ssm is not None:
             mix = mix * 0.5                # hymba: mean-fused parallel heads
-        xm = x.float() + mix.float()
+        xm = x.float() + L.batch_only(mix).float()
         if self.cross is not None:
             kvc = L.cross_kv(self.cross, enc_out,
                              num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd)
@@ -142,14 +148,15 @@ class Block(nn.Module):
         if self.moe is None and self.mlp is None:
             return xm.to(dtype)
         h2 = L.rms_norm(xm, self.ln2, cfg.norm_eps, dtype=dtype)
-        return xm.to(dtype) + self.ffn(cfg, h2)
+        return xm.to(dtype) + L.batch_only(self.ffn(cfg, h2))
 
     def encode(self, cfg: ModelConfig, x, positions, mask):
         """An encoder block: bidirectional attention under ``mask``, then
         the gated MLP."""
         h = L.rms_norm(x, self.ln1, cfg.norm_eps)
         a, _ = self._attend(cfg, h, positions, 0, mask)
-        return self._ffn_residual(cfg, x.float() + a.float(), x.dtype)
+        return self._ffn_residual(cfg, x.float() + L.batch_only(a).float(),
+                                  x.dtype)
 
     def decode(self, cfg: ModelConfig, x, pos, window: int, ck=None,
                cv=None, cssm=None, cconv=None, xk=None, xv=None, xlen=None):
@@ -172,7 +179,7 @@ class Block(nn.Module):
             mix = y if mix is None else mix + y
         if self.attn is not None and self.ssm is not None:
             mix = mix * 0.5
-        xm = x.float() + mix.float()
+        xm = x.float() + L.batch_only(mix).float()
         if self.cross is not None:
             xm = self._cross_residual(
                 cfg, xm, x.dtype, lambda hc: L.decode_attention(
@@ -250,16 +257,26 @@ def _dtype(part: str, leaf: str):
             else torch.bfloat16)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                empty: bool = False) -> LM:
     """Random weights for any config, drawn on ``device`` (None: the card)
     from a ``torch.Generator`` seeded with ``seed``: dense weights normal x
     fan_in^-0.5, norms and ``dt_bias`` / ``A_log`` zeros, ``D`` ones, as
     the reference initialises them.  The draws differ from the reference's
     ``jax.random`` ones; ``params_from_numpy`` carries the reference's
-    weights instead."""
+    weights instead.  ``empty=True`` draws nothing: every dense weight is
+    ``torch.empty`` of its shape and dtype, so on ``device="meta"`` or
+    under ``FakeTensorMode`` the model allocates nothing (the dry run's
+    ``configs.param_specs``)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if empty else torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
+
+    def dense(shape, in_axis=0, dtype=torch.bfloat16):
+        if empty:
+            return torch.empty(shape, dtype=dtype, device=dev)
+        return L.dense_init(gen, shape, in_axis=in_axis, dtype=dtype,
+                            device=dev)
 
     def vec(fill=0.0, n=d):
         return torch.full((n,), fill, dtype=torch.float32, device=dev)
@@ -267,10 +284,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
     def block(cross):
         t = {"ln1": vec(), "ln2": vec()}
         for part, leaves in _block_shapes(cfg, cross).items():
-            t[part] = {
-                leaf: L.dense_init(gen, shape, in_axis=ax,
-                                   dtype=_dtype(part, leaf), device=dev)
-                for leaf, (shape, ax) in leaves.items()}
+            t[part] = {leaf: dense(shape, ax, _dtype(part, leaf))
+                       for leaf, (shape, ax) in leaves.items()}
         if cfg.has_ssm:
             nh = ssm_dims(cfg).nheads
             t["ssm"].update(A_log=vec(0.0, nh), D=vec(1.0, nh),
@@ -282,12 +297,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
 
     encdec = cfg.enc_layers > 0
     tensors = {"blocks": [block(encdec) for _ in range(cfg.num_layers)]}
-    tensors["embed"] = L.dense_init(gen, (padded_vocab(cfg), d), in_axis=1,
-                                    device=dev)
+    tensors["embed"] = dense((padded_vocab(cfg), d), in_axis=1)
     tensors["final_norm"] = vec()
     if not cfg.tie_embeddings:
-        tensors["lm_head"] = L.dense_init(gen, (d, padded_vocab(cfg)),
-                                          device=dev)
+        tensors["lm_head"] = dense((d, padded_vocab(cfg)))
     if encdec:
         tensors["enc_blocks"] = [block(False) for _ in range(cfg.enc_layers)]
         tensors["enc_norm"] = vec()
@@ -404,6 +417,14 @@ def grads_to_numpy(model: LM) -> dict:
 # full-sequence forward
 # ---------------------------------------------------------------------------
 
+def _embed(cfg: ModelConfig, model: LM, tokens) -> torch.Tensor:
+    """The tokens' embedding rows times the bf16 ``scale_emb``, looked up
+    by ``F.embedding``: on a mesh, DTensor shards it by vocabulary (a
+    masked partial sum, reduced here)."""
+    rows = torch.nn.functional.embedding(tokens.long(), model.embed)
+    return L.batch_only(rows * _bf16_scale(cfg))
+
+
 def _head_logits(cfg: ModelConfig, model: LM, x) -> torch.Tensor:
     """Final norm, head and final softcap -> bf16 logits, as the
     reference's ``forward`` / ``decode_step`` return them."""
@@ -436,7 +457,7 @@ def forward(cfg: ModelConfig, model: LM, tokens, prefix_embeds=None,
     builds an autograd graph only when the parameters require grad, as
     the trainer sets them (``model.requires_grad_(True)``); the weights
     are built frozen, so serving stays graph-free."""
-    x = model.embed[tokens.long()] * _bf16_scale(cfg)
+    x = _embed(cfg, model, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
@@ -487,6 +508,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return cache
 
 
+def _append_kv(c: torch.Tensor, new: torch.Tensor, pos: torch.Tensor):
+    """Write each lane's new K or V [L, B, KVH, D] into the cache [L, B,
+    T, KVH, D] at its position (a position past the cache writes nothing).
+    A batch-sharded DTensor cache is written on each rank's own lanes, as
+    an SPMD partitioner writes it: no collective, the cache keeps its
+    placements (DTensor has no in-place strategy for this scatter)."""
+    if isinstance(c, DTensor):
+        pl = c.placements
+        pos_pl = [Shard(0) if p == Shard(1) else Replicate() for p in pl]
+        _append_kv(c.to_local(),
+                   new.redistribute(c.device_mesh, pl).to_local(),
+                   pos.redistribute(c.device_mesh, pos_pl).to_local())
+        return
+    t = c.shape[2]
+    lanes = torch.arange(c.shape[1], device=c.device)
+    at_pos = pos.long().clamp(0, t - 1)
+    inside = (pos.long() < t)[None, :, None, None]
+    c[:, lanes, at_pos] = torch.where(inside, new.to(c.dtype),
+                                      c[:, lanes, at_pos])
+
+
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, model: LM, token, pos, cache: dict):
     """One serve step: ``token`` int [B] at positions ``pos`` int [B] (==
@@ -495,7 +537,7 @@ def decode_step(cfg: ModelConfig, model: LM, token, pos, cache: dict):
     tokens' K/V are appended after the layer loop (a position past the
     cache writes nothing), and the SSD states replaced.  The cache's
     tensors are updated in place and returned in a new dict."""
-    x = (model.embed[token.long()] * _bf16_scale(cfg))[:, None, :]
+    x = _embed(cfg, model, token)[:, None]
     windows = layer_windows(cfg)
     news = []
     for li, block in enumerate(model.blocks):
@@ -509,16 +551,9 @@ def decode_step(cfg: ModelConfig, model: LM, token, pos, cache: dict):
     logits = _head_logits(cfg, model, x)[:, 0]
     new_cache = dict(cache)
     if cfg.has_attention:
-        t = cache["k"].shape[2]
-        b = token.shape[0]
-        lanes = torch.arange(b, device=x.device)
-        at_pos = pos.long().clamp(0, t - 1)
-        inside = (pos.long() < t)[None, :, None, None]
         for name, j in (("k", 0), ("v", 1)):
-            c = cache[name]
             new = torch.stack([n[j][:, 0] for n in news])    # [L, B, KVH, D]
-            c[:, lanes, at_pos] = torch.where(inside, new.to(c.dtype),
-                                              c[:, lanes, at_pos])
+            _append_kv(cache[name], new, pos)
     if cfg.has_ssm:
         for li, (_, _, cssm, cconv) in enumerate(news):
             cache["ssm"][li] = cssm

@@ -19,9 +19,13 @@ the loss does not reach: mamba2's ``ln2``) takes a zero gradient, as
 Schedules: cosine (default), WSD (warmup-stable-decay, minicpm
 [arXiv:2404.06395]) and const.  ``state_from_numpy`` / ``state_to_numpy``
 carry the reference's ``opt_state`` tree (per-layer leaves stacked on a
-leading L axis) across.  The reference's ``state_shardings`` (ZeRO-3
-placements on a mesh) waits for the mesh, ROADMAP Queue A item 14; on one
-device every state leaf sits beside its parameter.
+leading L axis) across.
+
+On a mesh the parameters are DTensors (``dist.sharding``) and
+``state_shardings`` gives the state's placements, ZeRO-3 included:
+``init(model, shardings)`` lays each state leaf out on them, and
+``update`` runs unchanged on DTensors (the master -> parameter copy
+all-gathers a ZeRO-sharded master into its replicated parameter).
 """
 from __future__ import annotations
 
@@ -31,7 +35,9 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.dist import sharding as shd
 from repro_torch.models import lm
 
 
@@ -76,19 +82,26 @@ def schedule_fn(cfg: AdamWConfig) -> Callable:
     return fn
 
 
-def init(model: torch.nn.Module) -> dict:
+def init(model: torch.nn.Module, shardings: dict | None = None) -> dict:
     """Optimizer state: a float32 master copy (a real copy, float32
     parameters too), zero moments, step 0 (int32), on the model's
-    device."""
+    device.  ``shardings`` (``state_shardings``' output) places the
+    master and the moments of a DTensor model: a ZeRO-sharded leaf keeps
+    only its rank's slice (taken locally, no collective)."""
     params = dict(model.named_parameters())
     dev = next(iter(params.values())).device
+
+    def master(n, p):
+        w = p.detach().to(torch.float32, copy=True)
+        if shardings is not None and isinstance(w, DTensor):
+            w = w.redistribute(w.device_mesh, shardings["master"][n])
+        return w
+
+    masters = {n: master(n, p) for n, p in params.items()}
     return {
-        "master": {n: p.detach().to(torch.float32, copy=True)
-                   for n, p in params.items()},
-        "m": {n: torch.zeros(p.shape, dtype=torch.float32, device=dev)
-              for n, p in params.items()},
-        "v": {n: torch.zeros(p.shape, dtype=torch.float32, device=dev)
-              for n, p in params.items()},
+        "master": masters,
+        "m": {n: torch.zeros_like(w) for n, w in masters.items()},
+        "v": {n: torch.zeros_like(w) for n, w in masters.items()},
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
 
@@ -164,3 +177,76 @@ def state_from_numpy(model: torch.nn.Module, tree: dict) -> dict:
     out["step"] = torch.tensor(np.asarray(tree["step"]), dtype=torch.int32,
                                device=dev)
     return out
+
+
+# ---------------------------------------------------------------------------
+# placements on a mesh (ZeRO-3)
+# ---------------------------------------------------------------------------
+
+ZERO_MIN_ELEMS = 1 << 20
+
+
+def zero_rule(shape, mesh):
+    """The reference's ZeRO loop on one (stacked) leaf: the *first*
+    dimension that the whole mesh divides goes over every axis, or else
+    the first that the last axis divides goes over that axis (its comment
+    says "largest"; the loop takes the first).  -> (dim, mesh dims) or
+    None."""
+    world = mesh.size()
+    last = mesh.size(mesh.ndim - 1)
+    for i, d in enumerate(shape):
+        if d % world == 0:
+            return i, tuple(range(mesh.ndim))
+        if d % last == 0:
+            return i, (mesh.ndim - 1,)
+    return None
+
+
+def _per_layer_dim(shape, mesh_dims, mesh):
+    """The first per-layer dimension that the mesh dims ``mesh_dims``
+    divide (the stacked leaf's rule picked its L axis)."""
+    n = 1
+    for m in mesh_dims:
+        n *= mesh.size(m)
+    for i, d in enumerate(shape):
+        if d % n == 0:
+            return i
+    return None
+
+
+def state_shardings(param_placements: dict, mesh, params=None) -> dict:
+    """Optimizer-state placements: {"master", "m", "v": {name:
+    placements}, "step": replicated}.
+
+    Default: every state leaf takes its parameter's placements.  ZeRO
+    extension: with ``params`` (the ``LM``, or its ``param_specs``), a
+    leaf whose parameter is replicated and whose stacked leaf holds at
+    least 1 Mi elements gets its state sharded by ``zero_rule``, judged on
+    the stacked leaf as the reference does.  Where that rule picks the
+    stacked L axis (a data-only mesh whose size divides the layer count),
+    a per-layer tensor cannot take it: each layer's state is sharded on
+    its first dimension that the same mesh axes divide, the same bytes
+    per device."""
+    rep = tuple(Replicate() for _ in range(mesh.ndim))
+    if params is None:
+        tree = dict(param_placements)
+    else:
+        tree = {}
+        for keys, (shape, names, stacked) in shd.stacked_leaves(
+                params).items():
+            pl = param_placements[names[0]]
+            rule = None
+            if all(isinstance(p, Replicate) for p in pl) and \
+                    math.prod(shape) >= ZERO_MIN_ELEMS:
+                rule = zero_rule(shape, mesh)
+            if rule is not None:
+                dim, mdims = rule
+                if stacked:
+                    dim = (dim - 1 if dim > 0 else
+                           _per_layer_dim(shape[1:], mdims, mesh))
+                if dim is not None:
+                    pl = tuple(Shard(dim) if m in mdims else Replicate()
+                               for m in range(mesh.ndim))
+            tree.update({n: pl for n in names})
+    return {"master": tree, "m": tree, "v": tree, "step": rep}
+

@@ -17,6 +17,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
@@ -41,7 +42,13 @@ def cross_entropy(cfg: ModelConfig, logits: torch.Tensor,
         lf = torch.where(lane < cfg.vocab_size, lf,
                          torch.full_like(lf, -1e30))
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    gold = torch.gather(lf, -1, labels[..., None].long())
+    if isinstance(gold, DTensor):
+        # a gather from vocab-sharded logits is a masked partial sum:
+        # reduce it at once (its mask does not follow the indexing below)
+        gold = gold.redistribute(gold.device_mesh, [
+            Replicate() if p.is_partial() else p for p in gold.placements])
+    gold = gold[..., 0]
     loss = torch.mean(lse - gold)
     if z_loss > 0:
         loss = loss + z_loss * torch.mean(torch.square(lse))
@@ -66,7 +73,10 @@ def make_value_and_grad(cfg: ModelConfig, tcfg: TrainConfig):
     first half of a train step.  With ``microbatches > 1`` the batch is cut
     into equal slices along dim 0, each slice's gradients are summed in
     float32, and the loss and the sums are divided by the count, as the
-    reference's scan does."""
+    reference's scan does.  On a mesh a batch-sharded input is sliced on
+    each rank's own rows (microbatch i holds slice i of every rank's
+    rows): the same rows over all microbatches, each microbatch sharded
+    as the batch is."""
     loss_fn = make_loss_fn(cfg, tcfg)
 
     def value_and_grad(model: lm.LM, batch: dict):
@@ -79,10 +89,19 @@ def make_value_and_grad(cfg: ModelConfig, tcfg: TrainConfig):
             return loss.detach(), {n: p.grad
                                    for n, p in model.named_parameters()}
         loss = torch.zeros((), dtype=torch.float32, device=model.device)
-        grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device)
+        grads = {n: torch.zeros_like(p, dtype=torch.float32)
                  for n, p in model.named_parameters()}
+
         def slice_mb(x, i):
+            if isinstance(x, DTensor) and Shard(0) in x.placements:
+                # a batch-sharded input: slice each rank's own rows, so a
+                # microbatch stays sharded (slicing the global batch would
+                # gather it onto every rank)
+                loc = x.to_local()
+                per = loc.shape[0] // mb
+                return DTensor.from_local(loc[i * per: (i + 1) * per],
+                                          x.device_mesh, x.placements,
+                                          run_check=False)
             per = x.shape[0] // mb
             return x[i * per: (i + 1) * per]
 

@@ -1224,7 +1224,7 @@ def test_train_launcher_resumes_on_the_card(cuda, tmp_path):
     """mamba2-130m smoke on the card (the launcher's default device): 6
     steps with a checkpoint every 3, then a resume to 10, the data cursor
     restored and every loss within 1e-3 relative of an uninterrupted run
-    (the embedding's backward adds atomically on the card, so not bit for
+    (the card's gradient sums need not repeat their order, so not bit for
     bit)."""
     from repro_torch.ckpt import manager as ckpt
     from repro_torch.launch import train
@@ -1240,3 +1240,73 @@ def test_train_launcher_resumes_on_the_card(cuda, tmp_path):
     whole = train.run(train.parse(base + ["--steps", "10"]))
     np.testing.assert_allclose(first.losses + rest.losses, whole.losses,
                                rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# mesh execution on one card (a one-rank NCCL group)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def one_rank_group(cuda):
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh_lib.ensure_group(1, "cuda")
+    yield mesh_lib
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("tinylfu", [False, True])
+def test_sharded_cache_one_device_mesh_equals_no_mesh(one_rank_group, cuda,
+                                                      tinylfu):
+    """``ShardedCache`` on a one-device ``sets`` mesh (kernel 2, and kernel
+    1 under TinyLFU) against ``mesh=None``: every chunk's outputs and the
+    final lanes, bit for bit."""
+    from repro_torch.core.sharded import ShardedCache, ShardedConfig
+
+    mesh = one_rank_group.make_mesh((1,), ("sets",), "cuda")
+    cfg = ShardedConfig(cache=KWayConfig(num_sets=256, ways=8,
+                                         policy=Policy.LRU), num_shards=1)
+    tl = admission.for_capacity(2048) if tinylfu else None
+    tr = traces.generate("zipf", 64 * 40, seed=3, catalog=20000)
+    runs = []
+    for m in (mesh, None):
+        sc = ShardedCache(cfg, m, device=cuda)
+        st = sc.init()
+        sk = sc.init_sketches(tl) if tl is not None else None
+        outs = []
+        for c in range(40):
+            keys = tr[c * 64:(c + 1) * 64]
+            kw = {} if tl is None else {"tinylfu": tl, "sketches": sk}
+            st, *o = sc.access(st, keys, keys.astype(np.int32), **kw)
+            if tl is not None:
+                sk = o.pop()
+            outs.append([x.cpu() for x in o])
+        runs.append((outs, kway.state_to_numpy(st)))
+    (a, sa), (b, sb) = runs
+    for c, (x, y) in enumerate(zip(a, b)):
+        for i, (u, v) in enumerate(zip(x, y)):
+            assert torch.equal(u, v), (c, i)
+    for leaf in sa:
+        np.testing.assert_array_equal(sa[leaf], sb[leaf], err_msg=leaf)
+
+
+def test_train_one_device_mesh_equals_no_mesh(one_rank_group, cuda):
+    """``launch.train.run`` through ``make_dev_mesh(1, 1)`` (DTensor
+    parameters, every placement replicated) against the plain one-device
+    run: equal losses (deterministic algorithms, so every backward op adds
+    in one order)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import train
+
+    mesh = one_rank_group.make_dev_mesh(1, 1)
+    args = ["--arch", "gemma2-2b", "--smoke", "--batch", "2", "--seq", "32",
+            "--steps", "3", "--lr", "1e-3"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        on = train.run(train.parse(args), mesh=mesh)
+        off = train.run(train.parse(args))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert all(isinstance(p, DTensor) for p in on.model.parameters())
+    np.testing.assert_allclose(on.losses, off.losses, rtol=1e-6)

@@ -196,7 +196,9 @@ def test_replay_batched_shards_refuses_ref():
 
 
 def test_mesh_refused():
-    with pytest.raises(ValueError, match="Queue A item 14"):
+    """A mesh without a 'sets' axis of num_shards devices is refused with
+    the reference's words."""
+    with pytest.raises(ValueError, match="'sets' axis of exactly"):
         ShardedCache(ShardedConfig(cache=KWayConfig(num_sets=8, ways=2),
                                    num_shards=2), mesh=object(),
                      device="cpu")
