@@ -163,17 +163,26 @@ it, show none.  It is:
      the card and on the host CPU from the same weights and batches
      (losses within 1e-3 relative, step-1 gradients within 3e-2 relative
      L2 per leaf); (b) gemma2-2b at full width and 2 layers, one [2, 32]
-     batch's loss and gradients, card vs host CPU; (c) gemma2-2b at full
+     batch's loss and gradients, card vs host CPU, and on the card with
+     remat against without (the same loss, gradients within 3e-2; the
+     largest difference printed); (c) gemma2-2b at full
      width and depth (2,614,222,080 parameters, seed 0) for 10 steps
      through ``launch.train.run`` with the launcher's defaults (batch 8 x
-     seq 128, AdamW lr 3e-3 cosine, warmup 5): losses finite and falling,
+     seq 128, AdamW lr 3e-3 cosine, warmup 5), every block
+     rematerialised (counted): losses finite and falling,
      every bf16 leaf moved; the step by CUDA events (forward + backward,
      optimizer; median of steps 4-10), tokens/s and peak memory beside the
      FLOP bound (6 x parameters x tokens at 989 TFLOP/s) and the
      optimizer's bytes bound; one more step under torch.profiler (device
      busy share, kernels, GEMMs); (d) mamba2-130m at full width and depth:
      6 steps with a checkpoint every 3, a resume to 10, against an
-     uninterrupted run (data cursor equal, losses within 1e-3).  Its
+     uninterrupted run (data cursor equal, losses within 1e-3); (e)
+     gemma2-2b at full size at train_4k's sequence length, batch 1 x seq
+     4096: the dry run's peak on a one-device "cuda" mesh with remat and
+     without, beside the card's memory, then 1 warm-up and 3 timed steps
+     through ``launch.train.run`` (every block rematerialised, counted):
+     finite losses, ``max_memory_allocated`` within 15 % of the remat
+     prediction, ms a step, tokens/s, one step under torch.profiler.  Its
      numbers print as one ``{"train": ...}`` JSON line before the last
      three lines.
 
@@ -202,8 +211,8 @@ it and read just after:
 
  17. every figure of ``eval.figures.FIGURES`` at ``quick=True`` on the card,
      with the arguments of its committed baseline (``throughput_shards``
-     at shards 1 and 4: its host-bound torch timing rows at 2 and 8 are
-     cut for time; every comparable record stays), artifacts under
+     timed at shard count 1: its host-bound torch timing rows at 2, 4 and
+     8 are cut for time; every comparable record stays), artifacts under
      ``chiprun_out/eval/``: one CUDA-graph capture per torch shape group
      and one kernel-3 launch per ``cuda`` sweep point (checked); each of
      the 8 committed baselines gated by the port's ``compare_to_baseline``
@@ -3000,6 +3009,30 @@ TRAIN_RESUME_CUT = 6
 TRAIN_CKPT_DIR = os.path.join(HERE, ".chip_smoke_train_ckpt")
 #: the card's dense bf16 peak (H100 SXM), for the FLOP bound
 BF16_FLOPS_PER_S = 989e12
+#: (e) gemma2-2b at full size at train_4k's sequence length, a per-device
+#: batch one card holds: 1 warm-up step, then TRAIN_4K_TIMED timed ones
+TRAIN_4K_SHAPE = ("train_4k_b1", 4096, 1, "train")
+TRAIN_4K_TIMED = 3
+
+
+@contextlib.contextmanager
+def count_remat():
+    """The blocks that enter ``torch.utils.checkpoint`` (the remat path of
+    ``lm.forward``) while the block runs, as a list that grows."""
+    from repro_torch.models import lm
+
+    entered = []
+    real = lm.checkpoint
+
+    def counted(fn, *args, **kw):
+        entered.append(fn)
+        return real(fn, *args, **kw)
+
+    lm.checkpoint = counted
+    try:
+        yield entered
+    finally:
+        lm.checkpoint = real
 
 
 def rel_l2(got, want) -> float:
@@ -3107,18 +3140,32 @@ def train_agreement_full_width(card, dev):
     pipe = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                         seq_len=s, global_batch=b))
     toks, labels = pipe.batch(DataState())
-    loss_fn = tstep.make_loss_fn(cfg, tstep.TrainConfig())
+    plain = copy.deepcopy(host).to(dev)        # the card, without remat
     losses, secs = [], []
-    for model, d in ((card_model, dev), (host, cpu)):
-        t0 = time.perf_counter()
-        model.requires_grad_(True)
-        loss = loss_fn(model, train.make_batch(cfg, args, toks, labels, d))
-        loss.backward()
-        losses.append(float(loss.detach()))
-        secs.append(time.perf_counter() - t0)
+    with count_remat() as entered:
+        for model, d, remat in ((card_model, dev, True), (host, cpu, True),
+                                (plain, dev, False)):
+            loss_fn = tstep.make_loss_fn(cfg, tstep.TrainConfig(remat=remat))
+            t0 = time.perf_counter()
+            model.requires_grad_(True)
+            loss = loss_fn(model, train.make_batch(cfg, args, toks, labels,
+                                                   d))
+            loss.backward()
+            losses.append(float(loss.detach()))
+            secs.append(time.perf_counter() - t0)
+    if len(entered) != 2 * cfg.num_layers:
+        raise AssertionError(f"train (b): {len(entered)} blocks "
+                             f"rematerialised, not 2 x {cfg.num_layers}")
     loss_err, worst, err = check_train_agreement(
         f"{TRAIN_ARCH} full width, {cfg.num_layers} layers",
-        [tuple(losses)], grad_errors(grads(card_model), grads(host)))
+        [tuple(losses[:2])], grad_errors(grads(card_model), grads(host)))
+    r_loss, r_worst, r_err = check_train_agreement(
+        f"{TRAIN_ARCH} full width, {cfg.num_layers} layers, remat vs not "
+        f"on the card", [(losses[0], losses[2])],
+        grad_errors(grads(card_model), grads(plain)))
+    r_abs = max(float((a.grad.float() - b.grad.float()).abs().max())
+                for a, b in zip(card_model.parameters(), plain.parameters())
+                if a.grad is not None)
     say(card, f"train (b) {TRAIN_ARCH} at full width, {cfg.num_layers} of "
               f"{configs.get(TRAIN_ARCH).config.num_layers} layers "
               f"({sum(p.numel() for p in host.parameters())} parameters), "
@@ -3128,6 +3175,14 @@ def train_agreement_full_width(card, dev):
               f"L2 {err:.3g} (tol {TRAIN_GRAD_TOL}); forward + backward "
               f"{secs[0]:.2f} s on the card (first call), {secs[1]:.2f} s "
               f"on the host CPU")
+    say(card, f"train (b) on the card, remat against without: loss "
+              f"{losses[0]!r} / {losses[2]!r} (equal: "
+              f"{losses[0] == losses[2]}, relative {r_loss:.3g}); worst "
+              f"gradient leaf {r_worst} at relative L2 {r_err:.3g} (tol "
+              f"{TRAIN_GRAD_TOL}); largest absolute gradient difference "
+              f"{r_abs!r}; without remat {secs[2]:.2f} s")
+    return {"remat_loss_err": r_loss, "remat_grad_err": r_err,
+            "remat_grad_max_abs": r_abs}
 
 
 def timed_step_factory(marks: list):
@@ -3165,7 +3220,7 @@ def optimizer_bytes(model) -> int:
                for p in model.parameters())
 
 
-def train_profile(card, cfg, args, run, med, out):
+def train_profile(card, cfg, args, run, med, out, label="(c)"):
     """Where a step's time goes: one more step after the timed run (the
     pipeline's next batch), its forward + backward and its optimizer each
     under torch.profiler (device activity only): device busy time, device
@@ -3205,8 +3260,8 @@ def train_profile(card, cfg, args, run, med, out):
                       and not getattr(ev, "is_user_annotation", False))
         busy = sum(t for t, _ in rows) / 1e3
         if not busy:
-            raise AssertionError(f"train (c) profile: no device rows for "
-                                 f"{name}")
+            raise AssertionError(f"train {label} profile: no device rows "
+                                 f"for {name}")
         gemm = sum(t for t, k in rows if any(
             g in k.lower() for g in GEMM_NAMES)) / 1e3
         top = ", ".join(f"{k[:40]} {t / 1e3:.2f} ms" for t, k in
@@ -3214,7 +3269,7 @@ def train_profile(card, cfg, args, run, med, out):
         out[f"{name}_profile"] = dict(
             busy_ms=busy, gemm_ms=gemm, kernels=kernels,
             busy_share=busy / med[key], profiled_wall_ms=wall)
-        say(card, f"train (c) profile, {name} of one step: device busy "
+        say(card, f"train {label} profile, {name} of one step: device busy "
                   f"{busy:.3f} ms over {kernels} kernels = "
                   f"{busy / med[key]:.1%} of the unprofiled "
                   f"{med[key]:.3f} ms (profiled wall {wall:.1f} ms); GEMMs "
@@ -3249,12 +3304,16 @@ def train_timed_cell(card, dev, out):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
-        run = train.run(args)
+        with count_remat() as entered:
+            run = train.run(args)
     finally:
         train.make_train_step = real
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
     counts = launch_counts()
+    if len(entered) != TRAIN_STEPS * cfg.num_layers:
+        raise AssertionError(f"train (c): {len(entered)} blocks "
+                             f"rematerialised in {TRAIN_STEPS} steps")
     peak = torch.cuda.max_memory_allocated()
     losses = run.losses
     if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
@@ -3303,11 +3362,13 @@ def train_timed_cell(card, dev, out):
         step_bound_ms=bound, flop_share=flop_ms / med["fb"],
         bytes_share=bytes_ms / med["opt"], step_share=bound / med["step"],
         optimizer_bytes=opt_bytes, changed_share=changed_share,
-        step_ms_all=step, launches=counts, run_s=wall)
+        step_ms_all=step, launches=counts, run_s=wall,
+        remat_blocks=len(entered))
     say(card, f"train (c) {cfg.name}: {n_params} parameters; losses "
               f"{' '.join(f'{x:.4f}' for x in losses)} (finite; step "
               f"{TRAIN_STEPS} below step 1); every bf16 leaf changed "
-              f"({changed_share:.1%} of bf16 elements)")
+              f"({changed_share:.1%} of bf16 elements); {len(entered)} "
+              f"blocks rematerialised ({cfg.num_layers} a step)")
     say(card, f"train (c) {cfg.name}: step {med['step']:.3f} ms (CUDA events, "
               f"median of steps {TRAIN_TIMED_FROM}-{TRAIN_STEPS}) = forward "
               f"+ backward {med['fb']:.3f} ms + optimizer {med['opt']:.3f} "
@@ -3392,14 +3453,138 @@ def train_resume_cell(card, out):
               f"{' '.join(f'{a:.5f}/{b:.5f}' for a, b in pairs)}")
 
 
+def train_4k_predict(cfg, shape) -> dict:
+    """(e)'s prediction: ``dryrun.run_cell`` of the cell on a one-device
+    "cuda" mesh under FakeTensorMode (one microbatch), with remat and
+    without -> {remat: (predicted bytes, record, seconds)}.  The one-rank
+    NCCL group is destroyed after."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.make_dev_mesh(1, 1)
+    pred = {}
+    try:
+        for remat in (True, False):
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell(TRAIN_ARCH, shape, mesh=mesh, cfg=cfg,
+                                  microbatches=1, remat=remat)
+            m = rec["memory"]
+            pred[remat] = (m["argument_bytes"] + m["temp_bytes"]
+                           + m["output_bytes"], rec,
+                           time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    return pred
+
+
+def train_4k_cell(card, dev, out):
+    """(e) gemma2-2b at full size at train_4k's sequence length (batch 1 x
+    seq 4096): the dry run's peak with remat and without beside the
+    card's memory (a finding: the cell without remat is predicted, never
+    run), then 1 warm-up and TRAIN_4K_TIMED timed steps through
+    ``launch.train.run``, every block rematerialised: finite losses, the
+    peak within MESH_MEMORY_TOL of the remat prediction, ms a step (CUDA
+    events), tokens/s; one more step under torch.profiler."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+
+    cfg = configs.get(TRAIN_ARCH).config
+    shape = configs.ShapeConfig(*TRAIN_4K_SHAPE)
+    pred = train_4k_predict(cfg, shape)
+    total = torch.cuda.get_device_properties(0).total_memory
+    (on, rec, on_s), (off, _, off_s) = pred[True], pred[False]
+    fits = {k: v[0] <= total for k, v in pred.items()}
+    say(card, f"train (e) dry run of {TRAIN_ARCH} at full size, batch "
+              f"{shape.global_batch} x seq {shape.seq_len} (one microbatch) "
+              f"on a one-device cuda mesh: with remat {on} B "
+              f"({on / 2**30:.2f} GiB; arguments "
+              f"{rec['memory']['argument_bytes']} + temp "
+              f"{rec['memory']['temp_bytes']} + outputs "
+              f"{rec['memory']['output_bytes']}) in {on_s:.1f} s; without "
+              f"remat {off} B ({off / 2**30:.2f} GiB) in {off_s:.1f} s; the "
+              f"card's total_memory {total} B ({total / 2**30:.2f} GiB): "
+              f"with remat fits {fits[True]}, without fits {fits[False]} "
+              f"(not run)")
+    args = train.parse(["--arch", TRAIN_ARCH, "--batch",
+                        str(shape.global_batch), "--seq", str(shape.seq_len),
+                        "--steps", str(1 + TRAIN_4K_TIMED)])
+    tokens = args.batch * args.seq
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    marks = []
+    real = train.make_train_step
+    train.make_train_step = timed_step_factory(marks)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with count_remat() as entered:
+            run = train.run(args)
+    finally:
+        train.make_train_step = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    if len(run.losses) != args.steps or not np.all(np.isfinite(run.losses)):
+        raise AssertionError(f"train (e): losses {run.losses}")
+    if len(entered) != args.steps * cfg.num_layers:
+        raise AssertionError(f"train (e): {len(entered)} blocks "
+                             f"rematerialised in {args.steps} steps")
+    fb = [s.elapsed_time(e) for _, (s, e, _) in marks][1:]
+    opt = [s.elapsed_time(e) for _, (_, s, e) in marks][1:]
+    step = [a + b for a, b in zip(fb, opt)]
+    med = {"step": statistics.median(step), "fb": statistics.median(fb),
+           "opt": statistics.median(opt)}
+    prof = {}
+    train_profile(card, cfg, args, run, med, prof, "(e)")
+    losses = run.losses
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_err = abs(on - peak) / peak
+    flop_ms = rec["counted"]["flops"] / BF16_FLOPS_PER_S * 1e3
+    out["train_4k"] = dict(
+        batch=args.batch, seq=args.seq, predicted_bytes=on,
+        predicted_no_remat_bytes=off, total_memory=total, peak_bytes=peak,
+        memory_error=mem_err, predicted_flops=rec["counted"]["flops"],
+        flop_bound_ms=flop_ms, step_ms=step, fwd_bwd_ms=fb,
+        optimizer_ms=opt, median_step_ms=med["step"],
+        tokens_per_s=tokens / med["step"] * 1e3, run_s=wall,
+        predict_s=[on_s, off_s], remat_blocks=len(entered), losses=losses,
+        **prof)
+    say(card, f"train (e) {TRAIN_ARCH} batch {args.batch} x seq {args.seq} "
+              f"through launch.train.run, {args.steps} steps in {wall:.1f} "
+              f"s ({len(entered)} blocks rematerialised), losses "
+              f"{' '.join(f'{x:.4f}' for x in losses)} (finite): step ms "
+              f"(CUDA events, after 1 warm-up) "
+              f"{' '.join(f'{x:.2f}' for x in step)} -> median "
+              f"{med['step']:.3f} = forward + recompute + backward "
+              f"{med['fb']:.3f} + optimizer {med['opt']:.3f}; "
+              f"{out['train_4k']['tokens_per_s']:.1f} tokens/s; the dry "
+              f"run's FLOPs {rec['counted']['flops']} at "
+              f"{BF16_FLOPS_PER_S:.4g} FLOP/s = {flop_ms:.3f} ms "
+              f"({flop_ms / med['fb']:.1%} of forward + backward)")
+    say(card, f"train (e) peak max_memory_allocated {peak} B "
+              f"({peak / 2**30:.2f} GiB) over the {base} B in use before; "
+              f"predicted with remat / measured {on / peak:.4f} (error "
+              f"{mem_err:.4f}, tol {MESH_MEMORY_TOL}); without remat the "
+              f"prediction is {off / total:.2f}x the card's memory")
+    if mem_err > MESH_MEMORY_TOL:
+        raise AssertionError(f"train (e): predicted {on} B, measured peak "
+                             f"{peak} B")
+
+
 def phase_train(card, dev, out):
     """Training (``data/``, ``optim/``, ``train/``, ``launch/train.py``) on
     the card: (a) every family's smoke config, three steps card vs host
     CPU; (b) gemma2-2b at full width and TRAIN_AGREE_LAYERS layers, loss
-    and gradients card vs host CPU; (c) the timed cell, gemma2-2b at full
-    width and depth through the launcher; (d) a resume at mamba2-130m's
-    full size.  Training runs no kernel of the port's cache path: the
-    launch counters are set to 0 before (c) and read after it."""
+    and gradients card vs host CPU and remat vs not; (c) the timed cell,
+    gemma2-2b at full width and depth through the launcher; (d) a resume
+    at mamba2-130m's full size; (e) gemma2-2b at train_4k's sequence
+    length, predicted and run.  Training runs no kernel of the port's
+    cache path: the launch counters are set to 0 before (c) and read
+    after it."""
     from repro_torch import configs
 
     gc.collect()
@@ -3421,11 +3606,12 @@ def phase_train(card, dev, out):
               f"{worst[2]:.3g} relative L2 (worst {worst[3]} {worst[1]}; tol "
               f"{TRAIN_GRAD_TOL}) in {time.perf_counter() - t0:.1f} s")
     out.update(agree_loss_err=worst[0], agree_grad_err=worst[2])
-    train_agreement_full_width(card, dev)
+    out.update(train_agreement_full_width(card, dev))
     gc.collect()
     torch.cuda.empty_cache()
     train_timed_cell(card, dev, out)
     train_resume_cell(card, out)
+    train_4k_cell(card, dev, out)
 
 
 # ---------------------------------------------------------------------------
@@ -4335,9 +4521,10 @@ def phase_robust_serve(card, dev, results, serve):
 EVAL_OUT = os.path.join(HERE, "chiprun_out", "eval")
 #: each figure of the port's FIGURES with the arguments its committed
 #: baseline's spec records (None: no committed baseline, the defaults);
-#: throughput_shards at shards (1, 4), not the spec's (1, 2, 4, 8): its
-#: torch rows are host-bound (about 45 s a shard count), and its
-#: comparable records are the hit ratios at shards 1 and 4
+#: throughput_shards times shard count 1 alone, not the spec's (1, 2, 4,
+#: 8): its torch rows are host-bound (about 45 s a shard count), and its
+#: comparable records, the hit ratios at shards 1 and 4, are made whatever
+#: counts are timed
 EVAL_RUNS = (
     ("hit_ratio", "quick.json", {"backends": ("torch", "cuda")}),
     ("sampled_vs_limited", None, {}),
@@ -4347,7 +4534,7 @@ EVAL_RUNS = (
     ("throughput_resident", "BENCH_throughput_resident_quick.json",
      {"backends": ("torch", "cuda")}),
     ("throughput_shards", "BENCH_throughput_vs_shards_quick.json",
-     {"shards": (1, 4)}),
+     {"shards": (1,)}),
     ("showdown", "BENCH_showdown_quick.json", {}),
     ("synthetic_mix", None, {}),
     ("serving", None, {}),

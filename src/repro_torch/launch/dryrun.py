@@ -7,7 +7,8 @@ without hardware:
     single-pod mesh AND the 2x16x16 multi-pod mesh (a fake process group
     of 256 or 512 ranks in this one process, ``launch/mesh.py``);
   * it fits: per-device argument, temporary and output bytes of the full
-    step;
+    step (a train step rematerialises every block, as the reference's
+    scanned + remat step does: ``lm.forward``);
   * the roofline terms (``roofline/analysis.py``), counted on one rank's
     local ops by ``StepCounter``.
 
@@ -16,7 +17,8 @@ the layers, and since ``cost_analysis`` counts a scan body once it
 extrapolates its costs from 1- and 2-period unrolled lowerings.  Eager
 torch runs every layer op by op, so the port counts the full depth
 directly and needs no extrapolation.  The step is the port's own:
-``train.step.make_train_step`` (loss, autograd gradients, ``adamw.update``
+``train.step.make_train_step`` (loss, autograd gradients through the
+remat forward, ``adamw.update``
 with the ZeRO placements of ``adamw.state_shardings``; 8 microbatches
 when the batch divides, as the reference's production artifact),
 ``lm.forward`` (prefill) and ``lm.decode_step`` (decode), all inside
@@ -27,7 +29,9 @@ Memory per device, the reference's ``memory`` fields: ``argument_bytes``
 the local shards of the parameters, optimizer state, inputs and cache;
 ``output_bytes`` what the step returns in storage of its own;
 ``temp_bytes`` the most bytes alive at once that the step created, less
-the outputs.  ``compile_s`` is the seconds of the fake run.
+the outputs.  A train step's FLOPs and bytes include the backward's
+recomputed forward, as the reference's ``cost_analysis`` of its remat
+lowering does.  ``compile_s`` is the seconds of the fake run.
 
 The fake mesh is ``"cpu"``-typed unless ``--mesh-device cuda``: the dry
 run touches no device either way, but DTensor lowers an all-to-all on a
@@ -75,11 +79,13 @@ def microbatches_for(shape: ShapeConfig) -> int:
     return 8 if shape.global_batch % 8 == 0 else 1
 
 
-def build_train_fn(cfg: ModelConfig, microbatches: int = 1):
+def build_train_fn(cfg: ModelConfig, microbatches: int = 1,
+                   remat: bool = True):
     """(model, opt_state, batch) -> (model, opt_state, metrics): the
     trainer's step (in place), gradients accumulated over
-    ``microbatches``."""
-    return make_train_step(cfg, TrainConfig(microbatches=microbatches))
+    ``microbatches``; ``remat=False`` keeps every block's activations."""
+    return make_train_step(cfg, TrainConfig(microbatches=microbatches,
+                                            remat=remat))
 
 
 def build_prefill_fn(cfg: ModelConfig):
@@ -105,11 +111,12 @@ def build_decode_fn(cfg: ModelConfig):
 
 def place_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, device,
                batch: dict | None = None, model=None,
-               microbatches: int | None = None):
+               microbatches: int | None = None, remat: bool = True):
     """The cell's step and its arguments as DTensors on ``mesh``:
     -> (fn, args, argument tensors).  Under ``FakeTensorMode`` nothing is
     allocated.  ``batch`` / ``model`` (full tensors) replace the empty
-    specs for a real run; ``microbatches`` None: ``microbatches_for``."""
+    specs for a real run; ``microbatches`` None: ``microbatches_for``;
+    ``remat`` (train only) False: the step without rematerialisation."""
     if model is None:
         model = configs.param_specs(cfg, device=device)
     pl = shd.param_shardings(cfg, model, mesh)
@@ -123,7 +130,8 @@ def place_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, device,
         opt = adamw.init(model, adamw.state_shardings(pl, mesh, model))
         tensors += [t for k in ("master", "m", "v")
                     for t in opt[k].values()] + [opt["step"]]
-        fn = build_train_fn(cfg, microbatches or microbatches_for(shape))
+        fn = build_train_fn(cfg, microbatches or microbatches_for(shape),
+                            remat)
         return fn, (model, opt, inputs), tensors
     if shape.kind == "prefill":
         return build_prefill_fn(cfg), (model, inputs), tensors
@@ -168,12 +176,13 @@ def count_step(fn, args, tensors):
 
 def run_cell(arch_id: str, shape: ShapeConfig, *, multi_pod: bool = False,
              roofline: bool = True, mesh=None, cfg: ModelConfig = None,
-             device_type: str = "cpu", microbatches: int | None = None
-             ) -> dict:
+             device_type: str = "cpu", microbatches: int | None = None,
+             remat: bool = True) -> dict:
     """Run one cell's step under ``FakeTensorMode``; return the record for
     dryrun_results.json.  ``mesh`` None: the production mesh (fake group
     of its size, ``device_type``); ``cfg`` None: the arch's config;
-    ``microbatches`` None: ``microbatches_for(shape)``."""
+    ``microbatches`` None: ``microbatches_for(shape)``; ``remat`` False:
+    a train step that keeps every activation (the record says which)."""
     cfg = cfg if cfg is not None else configs.get(arch_id).config
     if mesh is None:
         mesh_lib.start_fake_group(512 if multi_pod else 256)
@@ -183,10 +192,13 @@ def run_cell(arch_id: str, shape: ShapeConfig, *, multi_pod: bool = False,
     rec = {"arch": arch_id, "shape": shape.name,
            "mesh": "x".join(str(s) for s in mesh.shape), "chips": chips,
            "mesh_device": mesh.device_type}
+    if shape.kind == "train":
+        rec["remat"] = remat
     t0 = time.time()
     with FakeTensorMode():
         fn, args, tensors = place_cell(cfg, shape, mesh, mesh.device_type,
-                                       microbatches=microbatches)
+                                       microbatches=microbatches,
+                                       remat=remat)
         _, counter, rec["memory"] = count_step(fn, args, tensors)
     rec["compile_s"] = round(time.time() - t0, 1)
     rec["counted"] = counter.to_json()

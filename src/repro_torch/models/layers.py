@@ -307,6 +307,21 @@ def moe(p: dict, x, *, num_experts: int, top_k: int,
                  .to(x.dtype), xd, 0)
 
 
+def moe_aux_loss(p: dict, x, *, num_experts: int, top_k: int):
+    """Load-balancing auxiliary loss (Switch / Mixtral form), the
+    reference's ``moe_aux_loss``: ``num_experts`` x the sum over experts
+    of the share of top-k picks each gets times its mean gate, all float32
+    (``x`` [B, S, d], ``router`` [d, E]).  As in the reference, no loss
+    calls it (``TrainConfig.moe_aux_weight`` is unused)."""
+    t = x.shape[0] * x.shape[1]
+    gates = torch.softmax(x.reshape(t, -1).float() @ p["router"].float(),
+                          dim=-1)
+    _, idx = _top_k(gates, top_k)
+    frac_tokens = torch.nn.functional.one_hot(idx, num_experts).float() \
+        .mean(dim=(0, 1))
+    return num_experts * torch.sum(frac_tokens * gates.mean(dim=0))
+
+
 # ---------------------------------------------------------------------------
 # Mamba2 (SSD, arXiv:2405.21060)
 # ---------------------------------------------------------------------------

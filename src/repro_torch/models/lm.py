@@ -22,6 +22,14 @@ sharded on the batch alone: each sublayer's output is brought back to
 that (``layers.batch_only``, the all-reduce or all-gather an SPMD
 partitioner puts after a row- or column-sharded product).
 
+Training rematerialises every block as the reference does
+(``jax.checkpoint`` with ``dots_with_no_batch_dims_saveable``): where a
+graph is being built, each decoder and encoder block runs under
+``torch.utils.checkpoint`` with a selective policy (``remat_policy``) that
+keeps the outputs of its products without a batch dimension and
+recomputes everything else in the backward.  Serving builds no graph and
+never enters it.
+
 Numerics follow the reference as XLA compiles its layer loop: a bf16 op
 whose result is cast straight to float32 keeps its float32 value (the
 residual sum that a norm reads), every other bf16 op rounds.  The paged
@@ -29,10 +37,14 @@ serving path is ``serve/paged_model.py``.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
@@ -157,6 +169,23 @@ class Block(nn.Module):
         a, _ = self._attend(cfg, h, positions, 0, mask)
         return self._ffn_residual(cfg, x.float() + L.batch_only(a).float(),
                                   x.dtype)
+
+    def unread_weights(self) -> tuple:
+        """The weights of the block's last projections, whose outputs only
+        the residual add reads: the MLP's ``wo``; with no MLP or MoE, the
+        cross attention's ``wo``, else the token mixers' output
+        projections.  The backward never reads these products, so
+        ``jax.checkpoint`` drops them from its residuals, and the remat
+        policy does not save them either."""
+        if self.mlp is not None:
+            return (self.mlp["wo"],)
+        if self.moe is not None:
+            return ()                    # its last products are batched
+        if self.cross is not None:
+            return (self.cross["wo"],)
+        return tuple(part[k] for part, k in ((self.attn, "wo"),
+                                             (self.ssm, "out_proj"))
+                     if part is not None)
 
     def decode(self, cfg: ModelConfig, x, pos, window: int, ck=None,
                cv=None, cssm=None, cconv=None, xk=None, xv=None, xlen=None):
@@ -437,15 +466,71 @@ def _head_logits(cfg: ModelConfig, model: LM, x) -> torch.Tensor:
     return logits
 
 
-def _encode(cfg: ModelConfig, model: LM, enc_embeds) -> torch.Tensor:
-    """Bidirectional encoder over stub frame embeddings [B, T, d]."""
+#: products without a batch dimension: the port writes each as ``x @ w``
+#: of a 2-D weight (the projections, the router), which reaches ``mm`` /
+#: ``addmm``; every batched product (the attention and SSD einsums, the
+#: MoE's expert products) reaches ``bmm``, whatever its batch extent
+NO_BATCH_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def remat_policy(unread):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` as a
+    selective-checkpoint policy: save the result of a product with no
+    batch dimension, recompute every other op.  A product whose weight is
+    in ``unread`` (``Block.unread_weights``) is recomputed too: its output
+    is read by no backward, so JAX keeps no residual of it either."""
+    def policy(ctx, op, *args, **kwargs):
+        if op in NO_BATCH_PRODUCTS and not any(
+                a is w for a in args for w in unread):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+def _call_block(block: Block, fn, remat: bool, *args) -> torch.Tensor:
+    """``fn(*args)``, under the remat policy where a graph is being built
+    (grad enabled and a block parameter requires grad): the block's
+    activations are recomputed in the backward but for its products'
+    outputs.  Serving, prefill and the tick's capture build no graph and
+    call ``fn`` directly.  The forward draws no random numbers, so no RNG
+    state is kept (its probe of the inputs' device fails on a fake mesh)."""
+    if not (remat and torch.is_grad_enabled()
+            and any(p.requires_grad for p in block.parameters())):
+        return fn(*args)
+    policy = remat_policy(block.unread_weights())
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: create_selective_checkpoint_contexts(
+                          policy))
+
+
+def _encode(cfg: ModelConfig, model: LM, enc_embeds,
+            remat: bool = True) -> torch.Tensor:
+    """Bidirectional encoder over stub frame embeddings [B, T, d]; each
+    block rematerialised where a graph is built, as the reference's
+    always is."""
     t = enc_embeds.shape[1]
     pos = torch.arange(t, dtype=torch.int32, device=enc_embeds.device)[None]
     full = torch.ones((1, t, t), dtype=torch.bool, device=enc_embeds.device)
     x = enc_embeds
     for block in model.enc_blocks:
-        x = block.encode(cfg, x, pos, full)
+        x = _call_block(block, functools.partial(block.encode, cfg), remat,
+                        x, pos, full)
     return L.rms_norm(x, model.enc_norm, cfg.norm_eps)
+
+
+def _decode_blocks(cfg: ModelConfig, model: LM, x, positions, enc_out,
+                   enc_mask, remat: bool = True) -> torch.Tensor:
+    """The decoder blocks over the full sequence, as the reference's
+    ``_scan_blocks(remat=True)``: the output alone (training drops the
+    K / V that ``Block.seq`` returns for prefill)."""
+    for block, window in zip(model.blocks, layer_windows(cfg)):
+        def seq(x, positions, enc_out, enc_mask, block=block, window=window):
+            return block.seq(cfg, x, positions, window, enc_out, enc_mask)[0]
+
+        x = _call_block(block, seq, remat, x, positions, enc_out, enc_mask)
+    return x
 
 
 def forward(cfg: ModelConfig, model: LM, tokens, prefix_embeds=None,
@@ -455,8 +540,17 @@ def forward(cfg: ModelConfig, model: LM, tokens, prefix_embeds=None,
     an encoder-decoder config encodes ``enc_embeds`` [B, T_enc, d] (the
     audio stub) and cross-attends to it from every decoder block.  It
     builds an autograd graph only when the parameters require grad, as
-    the trainer sets them (``model.requires_grad_(True)``); the weights
-    are built frozen, so serving stays graph-free."""
+    the trainer sets them (``model.requires_grad_(True)``), and then
+    rematerialises every block; the weights are built frozen, so serving
+    stays graph-free."""
+    return _forward(cfg, model, tokens, prefix_embeds, enc_embeds)
+
+
+def _forward(cfg: ModelConfig, model: LM, tokens, prefix_embeds=None,
+             enc_embeds=None, remat: bool = True) -> torch.Tensor:
+    """``forward``; ``remat=False`` keeps every block's activations for
+    the backward (the dry run's comparison; the reference has no such
+    switch on its forward)."""
     x = _embed(cfg, model, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -467,11 +561,10 @@ def forward(cfg: ModelConfig, model: LM, tokens, prefix_embeds=None,
         if enc_embeds is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder forward needs "
                              "enc_embeds")
-        enc_out = _encode(cfg, model, enc_embeds)
+        enc_out = _encode(cfg, model, enc_embeds, remat)
         enc_mask = torch.ones((1, s, enc_out.shape[1]), dtype=torch.bool,
                               device=x.device)
-    for block, window in zip(model.blocks, layer_windows(cfg)):
-        x, _ = block.seq(cfg, x, positions, window, enc_out, enc_mask)
+    x = _decode_blocks(cfg, model, x, positions, enc_out, enc_mask, remat)
     return _head_logits(cfg, model, x)
 
 

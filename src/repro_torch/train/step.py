@@ -5,10 +5,13 @@ Counterpart of ``repro/train/step.py``.  ``make_train_step`` returns a
 plain eager function ``(model, opt_state, batch) -> (model, opt_state,
 metrics)`` that updates the model and the state in place
 (``adamw.update``); the metrics are 0-d tensors, so a step needs no host
-sync.  The reference jits the step with donated buffers and can remat its
-layers; neither changes a value, and neither is ported (remat is a
-ROADMAP leftover).  A batch is a dict of tensors on the model's device:
-``tokens`` and ``labels`` [B, S] (int), and the frontend stubs
+sync.  The forward rematerialises every block as the reference's does
+(``lm.forward``: only the outputs of the products without a batch
+dimension are kept for the backward; ``TrainConfig.remat=False`` keeps
+every activation, for comparison).  The reference also jits the step
+with donated buffers, which changes no value and is not ported.  A batch
+is a dict of tensors on the model's device: ``tokens`` and ``labels``
+[B, S] (int), and the frontend stubs
 ``prefix_embeds`` / ``enc_embeds`` where the config has them.
 """
 from __future__ import annotations
@@ -30,6 +33,7 @@ class TrainConfig:
     microbatches: int = 1           # gradient accumulation steps
     z_loss: float = 0.0             # optional logit regularizer
     moe_aux_weight: float = 0.01    # unused, as in the reference
+    remat: bool = True              # False: keep every block's activations
 
 
 def cross_entropy(cfg: ModelConfig, logits: torch.Tensor,
@@ -57,10 +61,10 @@ def cross_entropy(cfg: ModelConfig, logits: torch.Tensor,
 
 def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
     def loss_fn(model: lm.LM, batch: dict) -> torch.Tensor:
-        logits = lm.forward(
+        logits = lm._forward(
             cfg, model, batch["tokens"],
             prefix_embeds=batch.get("prefix_embeds"),
-            enc_embeds=batch.get("enc_embeds"),
+            enc_embeds=batch.get("enc_embeds"), remat=tcfg.remat,
         )
         labels = batch["labels"][:, : logits.shape[1]]
         return cross_entropy(cfg, logits, labels, tcfg.z_loss)

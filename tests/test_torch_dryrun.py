@@ -3,7 +3,8 @@ this one process: train, prefill and decode cells of a dense, a MoE and
 an encoder-decoder config (widened so that some leaves are sharded) on
 2x2 and 2x2x2 meshes; the record's schema is the reference's, and the
 per-device argument bytes are the local shards' bytes counted here from
-the placements.  ``main``'s resume, documented skips and exit code on a
+the placements.  A train cell with remat against the same cell without:
+a lower live peak, more FLOPs by at most one forward.  ``main``'s resume, documented skips and exit code on a
 stubbed ``run_cell``."""
 import dataclasses
 import json
@@ -111,6 +112,39 @@ def test_run_cell_record(mesh, arch, shape):
                                         "collective-permute"}
     assert r["hlo_flops"] > 0 and r["model_flops"] > 0
     json.dumps(rec)
+
+
+#: a train cell whose activations outweigh the rest of its peak (at seq 32
+#: the peak is the logits' and the optimizer's), and its forward alone
+REMAT_TRAIN = configs.ShapeConfig("train_r", 128, 12, "train")
+REMAT_PREFILL = configs.ShapeConfig("prefill_r", 128, 12, "prefill")
+
+
+@pytest.mark.parametrize("mesh", ["2x2"], indirect=True)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_cell_remat(mesh, arch, monkeypatch):
+    """A train cell runs the remat step: a lower live peak than the same
+    step with ``remat=False``, and more FLOPs, by the recomputed forward
+    (its batched products) and by no more than one forward (the prefill
+    cell of the same tokens).  Prefill and decode cells build no graph and
+    never enter the checkpoint, so their records are as before."""
+    cfg = widened(arch)
+    on = dryrun.run_cell(arch, REMAT_TRAIN, mesh=mesh, cfg=cfg)
+    off = dryrun.run_cell(arch, REMAT_TRAIN, mesh=mesh, cfg=cfg, remat=False)
+    assert (on["remat"], off["remat"]) == (True, False)
+    assert on["memory"]["temp_bytes"] < off["memory"]["temp_bytes"]
+    assert on["memory"]["argument_bytes"] == off["memory"]["argument_bytes"]
+
+    def no_checkpoint(*a, **kw):
+        raise AssertionError("a step without grad entered the checkpoint")
+
+    monkeypatch.setattr(dryrun.lm, "checkpoint", no_checkpoint)
+    fwd = dryrun.run_cell(arch, REMAT_PREFILL, mesh=mesh, cfg=cfg)
+    extra = on["counted"]["flops"] - off["counted"]["flops"]
+    assert 0 < extra <= fwd["counted"]["flops"]
+    assert on["counted"]["bytes"] > off["counted"]["bytes"]
+    dec = dryrun.run_cell(arch, SHAPES[2], mesh=mesh, cfg=cfg)
+    assert "remat" not in fwd and "remat" not in dec
 
 
 def test_main_resumes_skips_and_fails(tmp_path, monkeypatch):

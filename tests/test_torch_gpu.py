@@ -1220,6 +1220,48 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
             assert err <= 3e-2 * den, (arch, name, err / max(den, 1e-30))
 
 
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_remat_gradients_on_the_card(cuda, arch, monkeypatch):
+    """The loss and gradients of one batch on the card with remat (every
+    block checkpointed, counted) against the same without: the same loss,
+    every gradient leaf within 3e-2 relative L2 (the card-vs-CPU
+    tolerance; equal kernels on equal inputs give equal values)."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, DataState, \
+        SyntheticPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.train import step as tstep
+    cfg = configs.get(arch).smoke
+    args = train.parse(["--arch", arch, "--smoke", "--batch", "2", "--seq",
+                        "32"])
+    pipe = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=32, global_batch=2))
+    batch = train.make_batch(cfg, args, *pipe.batch(DataState()), cuda)
+    entered, real = [], lm.checkpoint
+    monkeypatch.setattr(lm, "checkpoint", lambda fn, *a, **kw: (
+        entered.append(fn), real(fn, *a, **kw))[1])
+    runs = []
+    for remat in (True, False):
+        model = lm.init_params(cfg, seed=0, device="cpu").to(cuda)
+        model.requires_grad_(True)
+        loss = tstep.make_loss_fn(cfg, tstep.TrainConfig(remat=remat))(
+            model, batch)
+        loss.backward()
+        runs.append((float(loss.detach()), {n: p.grad for n, p in
+                                            model.named_parameters()}))
+    assert len(entered) == cfg.num_layers + cfg.enc_layers
+    (la, ga), (lb, gb) = runs
+    assert la == lb, (arch, la, lb)
+    for name, want in gb.items():
+        assert (ga[name] is None) == (want is None), name
+        if want is not None:
+            den = float(torch.linalg.vector_norm(want.float()))
+            err = float(torch.linalg.vector_norm(ga[name].float()
+                                                 - want.float()))
+            assert err <= 3e-2 * den, (arch, name, err / max(den, 1e-30))
+
+
 def test_train_launcher_resumes_on_the_card(cuda, tmp_path):
     """mamba2-130m smoke on the card (the launcher's default device): 6
     steps with a checkpoint every 3, then a resume to 10, the data cursor

@@ -99,6 +99,24 @@ def test_moe_matches_reference(fs, skew):
     np.testing.assert_allclose(_np(got), _np(want), atol=BF, rtol=BF)
 
 
+@pytest.mark.parametrize("experts,top_k,skew", [(4, 2, 0.0), (8, 2, 0.0),
+                                                (8, 1, 0.5)],
+                         ids=["e4k2", "e8k2", "e8k1-skewed"])
+def test_moe_aux_loss_matches_reference(experts, top_k, skew):
+    """The load-balancing loss on the same float32 router and bf16 inputs
+    at 2e-5 (float32 throughout); the skewed router sends most picks to
+    expert 0, so the loss rises past its balanced value of 1."""
+    r = np.random.default_rng(7)
+    pj, pt = _moe_params(r, 64, 128, experts, 1, skew)
+    xj, xt = _bf16(r.standard_normal((2, 16, 64)).astype(np.float32))
+    want = float(JL.moe_aux_loss(pj, xj, num_experts=experts, top_k=top_k))
+    got = TL.moe_aux_loss(pt, xt, num_experts=experts, top_k=top_k)
+    assert got.dtype == torch.float32 and got.shape == ()
+    np.testing.assert_allclose(float(got), want, rtol=F32)
+    if skew:
+        assert want > 1
+
+
 def test_moe_shards_partition_the_expert():
     """``ff_shards`` splits each expert's d_ff exactly: two virtual
     experts' halves sum to the whole expert (no pair dropped)."""

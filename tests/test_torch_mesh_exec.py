@@ -13,8 +13,9 @@ computes without a mesh:
 * ``CommDebugMode`` counts no collective inside a shard's own access and
   one all-gather per ``access`` call;
 * ``launch.train.run`` with ``--data 2 --model 2`` on a widened smoke
-  config (some leaves over the 1 Mi-element sharding threshold) gives
-  losses within 1e-3 relative of the one-device run;
+  config (some leaves over the 1 Mi-element sharding threshold), every
+  block rematerialised, gives losses within 1e-3 relative of the
+  one-device run;
 * a checkpoint saved by the one-device trainer restores onto the 2x2
   mesh with equal values (the counterpart of
   ``tests/test_ckpt_data.py::test_elastic_restore_to_different_mesh``).
@@ -84,6 +85,7 @@ def _worker(rank: int, tmp: str):
     from repro_torch.core.policies import Policy
     from repro_torch.core.sharded import (ShardedCache, ShardedConfig,
                                           shard_of)
+    from repro_torch.models import lm
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
@@ -132,9 +134,17 @@ def _worker(rank: int, tmp: str):
     out["comm_access"] = {str(k): v for k, v in
                           whole.get_comm_counts().items()}
 
-    # the trainer on a 2x2 mesh
+    # the trainer on a 2x2 mesh, its blocks rematerialised (counted)
     _use_widened()
-    run = train.run(train.parse(TRAIN + ["--data", "2", "--model", "2"]))
+    entered = []
+    real = lm.checkpoint
+    lm.checkpoint = lambda fn, *a, **kw: (entered.append(fn),
+                                          real(fn, *a, **kw))[1]
+    try:
+        run = train.run(train.parse(TRAIN + ["--data", "2", "--model", "2"]))
+    finally:
+        lm.checkpoint = real
+    out["remat_blocks"] = len(entered)
     out["losses"] = run.losses
     out["sharded_params"] = sum(
         isinstance(p, DTensor) and any(isinstance(x, Shard)
@@ -265,6 +275,7 @@ def test_mesh_cache_collectives(runs):
 def test_mesh_trainer_losses_match_one_device(runs):
     _, one, got, _, _ = runs
     assert got["sharded_params"] > 0 and got["sharded_state"] > 0
+    assert got["remat_blocks"] == 3 * widened().num_layers
     np.testing.assert_allclose(got["losses"], one.losses, rtol=1e-3)
     assert len(one.losses) == 3 and np.isfinite(one.losses).all()
 

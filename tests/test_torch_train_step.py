@@ -11,7 +11,7 @@ relative and every leaf of ``grads_to_numpy`` within 3e-2 relative L2 of
 with ``microbatches`` 1 and 2, each step's loss within 1e-3 relative of the
 reference's jitted step; ``make_eval_step`` within 1e-4.  Serving stays
 graph-free: ``lm.forward`` on a serving model and the engine's outputs do
-not require grad.  The reference runs jitted, compiled once per config for
+not require grad, and never enter the remat checkpoint.  The reference runs jitted, compiled once per config for
 the module.
 """
 import dataclasses
@@ -216,11 +216,17 @@ def _tensors(obj):
             yield from _tensors(v)
 
 
-def test_serving_stays_graph_free():
+def test_serving_stays_graph_free(monkeypatch):
     """A serving model's weights are frozen: ``lm.forward`` on it and the
-    engine (host loop and tick) hold no tensor that requires grad, while a
-    model the trainer unfroze builds a graph."""
+    engine (host loop and tick) hold no tensor that requires grad and
+    never enter the remat checkpoint, nor does a forward under
+    ``torch.no_grad()``, while a model the trainer unfroze builds a graph
+    through one checkpoint a block."""
     from repro_torch.serve.engine import Engine, EngineConfig
+    entered = []
+    real = lm.checkpoint
+    monkeypatch.setattr(lm, "checkpoint", lambda fn, *a, **kw: (
+        entered.append(fn), real(fn, *a, **kw))[1])
     cfg = configs.get("deepseek-7b").smoke
     model = lm.init_params(cfg, seed=0, device="cpu")
     assert not any(p.requires_grad for p in model.parameters())
@@ -240,8 +246,11 @@ def test_serving_stays_graph_free():
         assert held and not any(t.requires_grad for t in held), jitted
     trained = lm.init_params(cfg, seed=1, device="cpu")
     trained.requires_grad_(True)
+    with torch.no_grad():
+        assert not lm.forward(cfg, trained, toks).requires_grad
+    assert not entered
     out = lm.forward(cfg, trained, toks)
-    assert out.requires_grad
+    assert out.requires_grad and len(entered) == cfg.num_layers
     out.float().sum().backward()
     assert trained.embed.grad is not None
     assert not any(p.requires_grad for p in model.parameters())
