@@ -3013,6 +3013,11 @@ BF16_FLOPS_PER_S = 989e12
 #: batch one card holds: 1 warm-up step, then TRAIN_4K_TIMED timed ones
 TRAIN_4K_SHAPE = ("train_4k_b1", 4096, 1, "train")
 TRAIN_4K_TIMED = 3
+#: (e) as the previous revision's two whole runs measured it on an NVIDIA
+#: H100 80GB HBM3 at 700.00 W (PERF.md section 6): constants, printed
+#: beside this run's figures
+TRAIN_4K_PREV = dict(step_ms=(1067.9, 1076.1), peak_bytes=67879567360,
+                     predicted_bytes=67639440396, predicted_over_peak=0.9965)
 
 
 @contextlib.contextmanager
@@ -3570,6 +3575,15 @@ def train_4k_cell(card, dev, out):
               f"predicted with remat / measured {on / peak:.4f} (error "
               f"{mem_err:.4f}, tol {MESH_MEMORY_TOL}); without remat the "
               f"prediction is {off / total:.2f}x the card's memory")
+    prev = TRAIN_4K_PREV
+    say(card, f"train (e) this run beside the previous revision's "
+              f"(constants from PERF.md section 6, not measured in this "
+              f"run): median step {med['step']:.1f} ms (previous: "
+              f"{prev['step_ms'][0]}-{prev['step_ms'][1]} ms); "
+              f"max_memory_allocated {peak} B (previous: "
+              f"{prev['peak_bytes']} B); predicted {on} B (previous: "
+              f"{prev['predicted_bytes']} B); predicted / measured "
+              f"{on / peak:.4f} (previous: {prev['predicted_over_peak']})")
     if mem_err > MESH_MEMORY_TOL:
         raise AssertionError(f"train (e): predicted {on} B, measured peak "
                              f"{peak} B")
@@ -3619,7 +3633,8 @@ def phase_train(card, dev, out):
 # ---------------------------------------------------------------------------
 
 #: (a) the mesh replay: the main trace's first requests, in BATCH chunks
-MESH_REPLAY_N = 2**19
+#: (2^18: (d)'s subprocesses share the host's cores with it)
+MESH_REPLAY_N = 2**18
 #: (b) the trainer through make_dev_mesh(1, 1): gemma2-2b at full width,
 #: TRAIN_AGREE_LAYERS layers, the launcher's batch, TRAIN_AGREE_OPT's lr
 MESH_TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", "3", "--lr", "1e-3"]
@@ -3634,9 +3649,25 @@ MESH_TIMED_STEPS = 3
 MESH_MEMORY_TOL = 0.15
 #: (d) production cells of the dry run on the fake 16x16 "cuda" mesh, one
 #: subprocess each, run beside (a)-(c): mixtral-8x22b's decode, the largest
-#: cache (gemma2-2b train_4k, 47-55 s of a host core, would outlast (a)-(c)
-#: and take the phase past its 60 s; the CPU sweep runs every cell)
-MESH_DRYRUN_CELLS = (("mixtral-8x22b", "decode_32k"),)
+#: cache; internvl2-2b's and deepseek-7b's prefill, attention on head
+#: shards (one KV head a rank pair; KV heads split as the queries);
+#: gemma2-2b train_4k at full width cut to 2 layers (None: full depth),
+#: the vocabulary-parallel loss over its 256k lanes (at full depth, 47-84
+#: s of a host core, it would outlast (a)-(c); the CPU sweep runs every
+#: cell at full depth)
+MESH_DRYRUN_CELLS = (("mixtral-8x22b", "decode_32k", None),
+                     ("internvl2-2b", "prefill_32k", None),
+                     ("deepseek-7b", "prefill_32k", None),
+                     ("gemma2-2b", "train_4k", 2))
+#: the reference's temp bytes a device of each (d) cell, from its compiled
+#: production artifact on a 16x16 mesh of Auto axes (tests/ref_dryrun_auto.py
+#: on the CPU: the reference imports JAX, which this script does not); the
+#: port's may be at most MESH_REF_FACTOR times as large
+MESH_REF_TEMP = {("mixtral-8x22b", "decode_32k"): 72529599248,
+                 ("internvl2-2b", "prefill_32k"): 2200331064,
+                 ("deepseek-7b", "prefill_32k"): 5100174000,
+                 ("gemma2-2b", "train_4k"): 7072525096}
+MESH_REF_FACTOR = 2.0
 MESH_DRYRUN_OUT = os.path.join(HERE, "chiprun_out", "dryrun")
 
 
@@ -3862,15 +3893,16 @@ def start_dryrun_cells() -> list:
     os.makedirs(MESH_DRYRUN_OUT, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
     procs = []
-    for arch, shape in MESH_DRYRUN_CELLS:
+    for arch, shape, layers in MESH_DRYRUN_CELLS:
         path = os.path.join(MESH_DRYRUN_OUT, f"{arch}_{shape}.json")
         if os.path.exists(path):
             os.remove(path)
         log = open(path[:-5] + ".log", "w")
+        cut = [] if layers is None else ["--layers", str(layers)]
         procs.append((arch, shape, path, log, subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              arch, "--shape", shape, "--skip-multi-pod", "--mesh-device",
-             "cuda", "--out", path], env=env, stdout=log,
+             "cuda", "--out", path] + cut, env=env, stdout=log,
             stderr=subprocess.STDOUT), time.perf_counter()))
     return procs
 
@@ -3893,18 +3925,29 @@ def finish_dryrun_cells(card, procs, out, timeout=600):
         gib = (m["argument_bytes"] + m["temp_bytes"] + m["output_bytes"]) \
             / 2**30
         r = rec["roofline"]
-        say(card, f"mesh (d) dry run {arch} {shape} on the fake 16x16 "
-                  f"{rec['mesh_device']} mesh: ok in {rec['compile_s']} s "
-                  f"(process {time.perf_counter() - t0:.1f} s wall), "
-                  f"{gib:.2f} GiB per device (arguments "
+        ref = MESH_REF_TEMP[(arch, shape)]
+        depth = (f", {rec['layers']} layers" if "layers" in rec
+                 else "")
+        say(card, f"mesh (d) dry run {arch} {shape}{depth} on the fake "
+                  f"16x16 {rec['mesh_device']} mesh: ok in "
+                  f"{rec['compile_s']} s (process "
+                  f"{time.perf_counter() - t0:.1f} s wall), {gib:.2f} GiB "
+                  f"per device (arguments "
                   f"{m['argument_bytes'] / 2**30:.2f}, temp "
-                  f"{m['temp_bytes'] / 2**30:.2f}), collectives "
-                  f"{r['coll_breakdown']}, step_time {r['step_time']:.4f} s "
-                  f"({r['bottleneck']})")
+                  f"{m['temp_bytes'] / 2**30:.2f}; the reference's temp "
+                  f"{ref / 2**30:.2f} GiB, a constant: port / reference "
+                  f"{m['temp_bytes'] / ref:.3f}, limit {MESH_REF_FACTOR}), "
+                  f"collectives {r['coll_breakdown']}, step_time "
+                  f"{r['step_time']:.4f} s ({r['bottleneck']})")
         out[f"dryrun_{arch}_{shape}"] = {
             "s": rec["compile_s"], "gib_per_device": gib,
+            "temp_bytes": m["temp_bytes"], "ref_temp_bytes": ref,
             "coll_breakdown": r["coll_breakdown"],
             "step_time": r["step_time"], "bottleneck": r["bottleneck"]}
+        if m["temp_bytes"] > MESH_REF_FACTOR * ref:
+            raise AssertionError(f"mesh (d) {arch} {shape}: temp "
+                                 f"{m['temp_bytes']} B, over "
+                                 f"{MESH_REF_FACTOR} x the reference's {ref}")
 
 
 def phase_mesh_dryrun(card, trace, dev, results, out):

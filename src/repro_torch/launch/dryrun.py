@@ -41,13 +41,14 @@ breakdown depends on the type, which each record names (``mesh_device``).
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun            # all cells
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-2b \\
-        --shape train_4k --skip-multi-pod
+        --shape train_4k --skip-multi-pod [--layers 2]
 Results accumulate in dryrun_results.json (resumable; --force recomputes);
 exit code 1 when any cell failed.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -149,10 +150,11 @@ def _storages(tensors) -> set:
                .untyped_storage()) for t in tensors}
 
 
-def count_step(fn, args, tensors):
+def count_step(fn, args, tensors, trace_bytes: int | None = None):
     """Run ``fn(*args)`` once under ``StepCounter`` (inside
-    ``implicit_replication``) -> (output, counter, memory dict)."""
-    counter = roof.StepCounter()
+    ``implicit_replication``) -> (output, counter, memory dict);
+    ``trace_bytes``: list the storages of that size alive at the peak."""
+    counter = roof.StepCounter(trace_bytes)
     counter.known(tensors)
     with implicit_replication(), counter:
         out = fn(*args)
@@ -177,12 +179,15 @@ def count_step(fn, args, tensors):
 def run_cell(arch_id: str, shape: ShapeConfig, *, multi_pod: bool = False,
              roofline: bool = True, mesh=None, cfg: ModelConfig = None,
              device_type: str = "cpu", microbatches: int | None = None,
-             remat: bool = True) -> dict:
+             remat: bool = True, trace_bytes: int | None = None) -> dict:
     """Run one cell's step under ``FakeTensorMode``; return the record for
     dryrun_results.json.  ``mesh`` None: the production mesh (fake group
     of its size, ``device_type``); ``cfg`` None: the arch's config;
     ``microbatches`` None: ``microbatches_for(shape)``; ``remat`` False:
-    a train step that keeps every activation (the record says which)."""
+    a train step that keeps every activation (the record says which);
+    ``trace_bytes``: the record's ``counted.peak_storages`` lists the
+    storages of at least that size alive at the peak, with the op and
+    the port's line that made each."""
     cfg = cfg if cfg is not None else configs.get(arch_id).config
     if mesh is None:
         mesh_lib.start_fake_group(512 if multi_pod else 256)
@@ -199,7 +204,8 @@ def run_cell(arch_id: str, shape: ShapeConfig, *, multi_pod: bool = False,
         fn, args, tensors = place_cell(cfg, shape, mesh, mesh.device_type,
                                        microbatches=microbatches,
                                        remat=remat)
-        _, counter, rec["memory"] = count_step(fn, args, tensors)
+        _, counter, rec["memory"] = count_step(fn, args, tensors,
+                                               trace_bytes)
     rec["compile_s"] = round(time.time() - t0, 1)
     rec["counted"] = counter.to_json()
     if not roofline:
@@ -225,6 +231,13 @@ def run_cell(arch_id: str, shape: ShapeConfig, *, multi_pod: bool = False,
 # driver
 # ---------------------------------------------------------------------------
 
+def cut_depth(cfg: ModelConfig, layers: int) -> ModelConfig:
+    """``cfg`` with ``layers`` decoder layers (and as many encoder layers
+    where it has an encoder)."""
+    return dataclasses.replace(cfg, num_layers=layers,
+                               enc_layers=layers if cfg.enc_layers else 0)
+
+
 def all_cells():
     for arch_id in configs.ARCH_IDS:
         spec = configs.get(arch_id)
@@ -244,6 +257,12 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-device", default="cpu", choices=["cpu", "cuda"],
                     help="device type of the fake mesh (nothing runs on "
                          "it either way)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut every cell's depth to this many layers "
+                         "(decoder and encoder; widths as published)")
+    ap.add_argument("--peak-storages", type=float, default=None,
+                    metavar="MIB", help="list the storages of at least "
+                    "this many MiB alive at each cell's peak")
     args = ap.parse_args(argv)
 
     results = {}
@@ -278,9 +297,16 @@ def main(argv=None) -> int:
                 continue
             print(f"=== {key} ===", flush=True)
             try:
+                kw = {}
+                if args.peak_storages is not None:
+                    kw["trace_bytes"] = int(args.peak_storages * 2**20)
+                if args.layers is not None:
+                    kw["cfg"] = cut_depth(spec.config, args.layers)
                 rec = run_cell(arch_id, shape, multi_pod=mp,
                                roofline=(mesh_name == "single"),
-                               device_type=args.mesh_device)
+                               device_type=args.mesh_device, **kw)
+                if args.layers is not None:
+                    rec["layers"] = args.layers
                 rec["status"] = "ok"
                 results[key] = rec
                 extra = ""
@@ -292,6 +318,10 @@ def main(argv=None) -> int:
                     "argument_bytes", "temp_bytes", "output_bytes")) / 2**30
                 print(f"    ok in {rec.get('total_s', rec['compile_s'])}s"
                       f" mem/dev={gib:.2f}GiB" + extra, flush=True)
+                listed = rec.get("counted", {}).get("peak_storages", [])
+                for n, op, where in listed[:8]:
+                    print(f"      at the peak: {n / 2**30:.3f} GiB {op} "
+                          f"({where})", flush=True)
             except Exception as e:  # noqa: BLE001 — record and continue
                 results[key] = {"arch": arch_id, "shape": shape.name,
                                 "mesh": mesh_name, "status": "fail",

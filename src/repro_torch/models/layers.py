@@ -14,6 +14,7 @@ decode's attention is (kernel 5, ``kernels/paged_attention.py``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -68,12 +69,16 @@ def causal_mask(positions_q, positions_k, window=0):
 
 def _attn_weights(q, k, mask, scale, softcap):
     """q [B,S,KVH,G,D], k [B,T,KVH,D], mask [B or 1, S, T] ->
-    float32 weights [B,KVH,G,S,T]."""
+    float32 weights [B,KVH,G,S,T].  The masked lanes take a scalar (no
+    score-sized fill tensor) and the softcap's divide and tanh run in
+    place on the scaled logits, so no more than two score-sized tensors
+    are alive at once.  The product itself is scaled out of place: it is
+    a view of the batched product's output, and an in-place op on it
+    would make the backward copy the whole score tensor."""
     logits = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) * scale
     if softcap > 0.0:
-        logits = torch.tanh(logits / softcap) * softcap
-    logits = torch.where(mask[:, None, None], logits,
-                         torch.full_like(logits, NEG_INF))
+        logits = logits.div_(softcap).tanh_() * softcap
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
     return torch.softmax(logits, dim=-1)
 
 
@@ -81,6 +86,143 @@ def _weighted_values(w, v):
     """bf16 weights (as the reference casts them) times v, summed in f32 ->
     [B, S, KVH, G, D] float32."""
     return torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype).float(), v.float())
+
+
+def _attend(q, k, v, mask, scale, softcap):
+    """``_weighted_values(_attn_weights(...), v)`` with the float32
+    weights dropped once their bf16 copy is made: without a graph (which
+    keeps the softmax for its backward) no more than two score-sized
+    float32 tensors are alive at once (the product's operand and the copy
+    the einsum lays out for its batched product)."""
+    w = _attn_weights(q, k, mask, scale, softcap)
+    wb = w.to(v.dtype)
+    del w
+    return torch.einsum("bkgst,btkd->bskgd", wb.float(), v.float())
+
+
+# ---------------------------------------------------------------------------
+# attention on head shards (a mesh whose model axis divides the heads)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HeadShards:
+    """One rank's share of an attention layer's heads on a mesh: ``hq``
+    query heads (its slice of the model-sharded projection) and KV heads
+    [kv0, kv0 + kvh), each group of ``hq // kvh`` query heads reading one
+    KV head.  ``kv_sharded``: the
+    K/V projections are split over the model axis as the queries are
+    (``num_kv_heads`` divisible by it); else every rank computes all KV
+    heads and slices the one its query heads read.  ``batch``: the
+    placements of the layer input's batch sharding (data axes only)."""
+    mesh: object
+    axis: int
+    batch: tuple
+    hq: int
+    kv0: int
+    kvh: int
+    kv_sharded: bool
+
+    def placements(self, dim: int) -> list:
+        """The batch sharding, and ``Shard(dim)`` over the model axis."""
+        from torch.distributed.tensor import Shard
+
+        return [Shard(dim) if m == self.axis else p
+                for m, p in enumerate(self.batch)]
+
+    def local(self, t, dim: int):
+        """A DTensor -> this rank's rows and its slice of dimension
+        ``dim`` (its heads), as a plain tensor."""
+        return t.redistribute(self.mesh, self.placements(dim)).to_local()
+
+    def rows(self, t, partial_grad: bool = False):
+        """A batch-leading DTensor -> this rank's rows as a plain tensor; a
+        plain tensor (positions or a mask of batch 1) as it is.
+        ``partial_grad``: the rank reads only part of its rows' values, so
+        the gradient it returns is a partial sum over the model axis."""
+        from torch.distributed.tensor import DTensor, Partial
+
+        if not isinstance(t, DTensor):
+            return t
+        grad = [Partial() if m == self.axis else p
+                for m, p in enumerate(self.batch)]
+        return t.redistribute(self.mesh, self.batch).to_local(
+            grad_placements=grad if partial_grad else None)
+
+    def kv_heads(self, t):
+        """K or V [B, T, KVH, D] with every KV head on each rank (a
+        batch-only DTensor or a cache) -> this rank's [b, T, kvh, D] (its
+        gradient: a partial sum over the model axis)."""
+        return self.rows(t, partial_grad=True)[:, :,
+                                               self.kv0:self.kv0 + self.kvh]
+
+    def gather(self, t):
+        """This rank's [b, S, hq * D] -> the DTensor sharded on its last
+        dimension over the model axis and on its batch as the input."""
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(t, self.mesh, self.placements(2),
+                                  run_check=False)
+
+
+def head_shards(x, wq, num_heads: int, num_kv_heads: int):
+    """-> this rank's ``HeadShards`` where the attention core runs on head
+    shards, else None (no mesh, or the batch-only path below).
+
+    The rule follows the reference's partition, read from its compiled
+    HLO: where the ``model`` axis (size m > 1) shards ``wq``'s output and
+    divides ``num_heads``, the partitioner keeps q's model sharding
+    through the reshape to heads, and each device holds H / m query
+    heads and the KV heads they read: KVH / m where m divides KVH, else
+    the one KV head of its partial group (H / m dividing the group size,
+    e.g. mixtral's 48 / 8 heads on 16, internvl's 16 / 8).  A ``wq`` below
+    the sharding threshold is replicated and the reference keeps every
+    head on every device; so does the port.  Heads that m does not divide
+    (gemma2-2b's 8, hymba-1.5b's 25, minicpm-2b's 36 on a 16-way axis)
+    take the batch-only path: every model rank holds all heads of its
+    rows (``_proj``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not (isinstance(x, DTensor) and isinstance(wq, DTensor)):
+        return None
+    from repro_torch.dist.sharding import data_axes
+
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or ()
+    if "model" not in names:
+        return None
+    axis = names.index("model")
+    m = mesh.size(axis)
+    if m == 1 or num_heads % m or wq.placements[axis] != Shard(1):
+        return None
+    hq, g = num_heads // m, num_heads // num_kv_heads
+    if num_kv_heads % m and g % hq:
+        return None
+    q0 = mesh.get_local_rank(axis) * hq
+    batch = tuple(p if p == Shard(0) and names[i] in data_axes(mesh)
+                  else Replicate() for i, p in enumerate(x.placements))
+    if num_kv_heads % m == 0:
+        return HeadShards(mesh, axis, batch, hq, q0 // g, num_kv_heads // m,
+                          True)
+    return HeadShards(mesh, axis, batch, hq, q0 // g, 1, False)
+
+
+def _attention_core(q, k, v, positions, mask, *, causal_self: bool,
+                    scale: float, softcap: float, window: int,
+                    q_chunk: int):
+    """q [B,S,KVH,G,D], k / v [B,T,KVH,D] (plain tensors: one rank's
+    heads on a mesh) -> float32 [B,S,KVH,G,D]; causal self-attention over
+    S > 2 * q_chunk (a multiple of it) runs in q blocks."""
+    s = q.shape[1]
+    if causal_self and q_chunk and s > 2 * q_chunk and s % q_chunk == 0:
+        outs = []
+        for c in range(s // q_chunk):
+            sl = slice(c * q_chunk, (c + 1) * q_chunk)
+            m = causal_mask(positions[:, sl], positions, window=window)
+            outs.append(_attend(q[:, sl], k, v, m, scale, softcap))
+        return torch.cat(outs, dim=1)
+    if mask is None:
+        mask = causal_mask(positions, positions, window=window)
+    return _attend(q, k, v, mask, scale, softcap)
 
 
 def attention(p: dict, x, positions, mask=None, kv=None, *, num_heads: int,
@@ -96,11 +238,23 @@ def attention(p: dict, x, positions, mask=None, kv=None, *, num_heads: int,
     For self-attention with S > 2 * q_chunk (and S a multiple of it) the
     query axis is blocked, as in the reference, so the logits are
     [B, H, q_chunk, S] at most; the blocked form is causal whatever
-    ``mask`` says, as the reference's is.  -> (output [B, S, d], (k, v)
-    [B, T, KVH, D]: the roped K and V the paged engine stores, or ``kv``).
+    ``mask`` says, as the reference's is.  On a mesh whose model axis
+    divides the heads (``head_shards``) each rank runs the core on its
+    own heads and rows, and the output projection reduces over the model
+    axis.  -> (output [B, S, d], (k, v) [B, T, KVH, D]: the roped K and V
+    the paged engine stores, or ``kv``).
     """
     b, s, _ = x.shape
     g = num_heads // num_kv_heads
+    scale = head_dim ** -0.5
+    core = functools.partial(_attention_core, causal_self=kv is None,
+                             scale=scale, softcap=softcap, window=window,
+                             q_chunk=q_chunk)
+    hs = head_shards(x, p["wq"], num_heads, num_kv_heads)
+    if hs is not None:
+        return _attention_on_heads(hs, p, x, positions, mask, kv, core,
+                                   head_dim=head_dim, rope_theta=rope_theta,
+                                   use_rope=use_rope)
     q = _proj(x, p["wq"]).reshape(b, s, num_heads, head_dim)
     if kv is None:
         k = _proj(x, p["wk"]).reshape(b, s, num_kv_heads, head_dim)
@@ -110,24 +264,51 @@ def attention(p: dict, x, positions, mask=None, kv=None, *, num_heads: int,
             k = rope(k, positions, rope_theta)
     else:
         k, v = kv
-    q = q.reshape(b, s, num_kv_heads, g, head_dim)
-    scale = head_dim ** -0.5
-    if kv is None and q_chunk and s > 2 * q_chunk and s % q_chunk == 0:
-        outs = []
-        for c in range(s // q_chunk):
-            sl = slice(c * q_chunk, (c + 1) * q_chunk)
-            m = causal_mask(positions[:, sl], positions, window=window)
-            w = _attn_weights(q[:, sl], k, m, scale, softcap)
-            outs.append(_weighted_values(w, v))
-        o = torch.cat(outs, dim=1)
-    else:
-        if mask is None:
-            mask = causal_mask(positions, positions, window=window)
-        o = _weighted_values(_attn_weights(q, k, mask, scale, softcap), v)
+    o = core(q.reshape(b, s, num_kv_heads, g, head_dim), k, v, positions,
+             mask)
     # batch-only before the output projection as well: on a 16-way model
     # axis DTensor's strategy for the merged product fails without it
     o = batch_only(o.reshape(b, s, num_heads * head_dim).to(x.dtype))
     return o @ p["wo"], (k, v)
+
+
+def _attention_on_heads(hs: HeadShards, p, x, positions, mask, kv, core, *,
+                        head_dim: int, rope_theta: float, use_rope: bool):
+    """``attention`` on one rank's heads: q keeps the projection's model
+    sharding (its local columns are the rank's heads), K / V are the
+    rank's KV heads, the core runs on plain local tensors (DTensor never
+    sees the merged batch x head dimension of its products), and the
+    output re-enters DTensor sharded on its heads for ``wo``."""
+    from torch.distributed.tensor import DTensor
+
+    q = hs.local(x @ p["wq"], 2)
+    b, s = q.shape[:2]
+    q = q.reshape(b, s, hs.hq, head_dim)
+    pos = hs.rows(positions)
+    if kv is None:
+        if hs.kv_sharded:
+            k, v = (hs.local(x @ p[w], 2).reshape(b, s, hs.kvh, head_dim)
+                    for w in ("wk", "wv"))
+            if use_rope:
+                k = rope(k, pos, rope_theta)
+            kv = tuple(DTensor.from_local(t, hs.mesh, hs.placements(2),
+                                          run_check=False) for t in (k, v))
+        else:
+            k, v = (_proj(x, p[w]).reshape(*x.shape[:2], -1, head_dim)
+                    for w in ("wk", "wv"))
+            if use_rope:
+                k = rope(k, positions, rope_theta)
+            kv = (k, v)
+            k, v = hs.kv_heads(k), hs.kv_heads(v)
+        if use_rope:
+            q = rope(q, pos, rope_theta)
+    else:
+        k, v = hs.kv_heads(kv[0]), hs.kv_heads(kv[1])
+    mask = None if mask is None else hs.rows(mask)
+    o = core(q.reshape(b, s, hs.kvh, hs.hq // hs.kvh, head_dim), k, v, pos,
+             mask)
+    o = hs.gather(o.reshape(b, s, hs.hq * head_dim).to(x.dtype))
+    return o @ p["wo"], kv
 
 
 def cross_kv(p: dict, enc_out, *, num_kv_heads: int, head_dim: int):
@@ -136,6 +317,41 @@ def cross_kv(p: dict, enc_out, *, num_kv_heads: int, head_dim: int):
     k = _proj(enc_out, p["wk"]).reshape(b, t, num_kv_heads, head_dim)
     v = _proj(enc_out, p["wv"]).reshape(b, t, num_kv_heads, head_dim)
     return k, v
+
+
+def _decode_core(q, pos, k_cache, v_cache, *, scale: float, softcap: float,
+                 window: int, is_cross: bool, cross_len, kv_new):
+    """``decode_attention``'s softmax over the cache (plain tensors: one
+    rank's heads and rows on a mesh): q [B, 1, KVH, G, D] roped, caches
+    [B, T, KVH, D] -> float32 [B, 1, KVH, G, D]."""
+    t = k_cache.shape[1]
+    kpos = torch.arange(t, device=q.device)[None, :]
+    if is_cross:
+        mask = (kpos < cross_len[:, None])[:, None, :]
+    else:
+        diff = pos.long()[:, None, None] - kpos[:, None, :]      # [B, 1, T]
+        mask = diff >= 1                                 # strictly older
+        if window > 0:
+            mask = mask & (diff < window)
+    logits = torch.einsum("bskgd,btkd->bkgst", q.float(),
+                          k_cache.float()) * scale
+    if softcap > 0.0:
+        logits = logits.div_(softcap).tanh_() * softcap
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    if kv_new is None:
+        return _weighted_values(torch.softmax(logits, dim=-1), v_cache)
+    k_new, v_new = kv_new
+    l_self = torch.einsum("bskgd,bskd->bkgs", q.float(),
+                          k_new.float())[..., None] * scale
+    if softcap > 0.0:
+        l_self = torch.tanh(l_self / softcap) * softcap
+    m = torch.maximum(logits.amax(dim=-1, keepdim=True), l_self)
+    w_c = torch.exp(logits - m)
+    w_s = torch.exp(l_self - m)                           # [B,KVH,G,1,1]
+    num = _weighted_values(w_c, v_cache)
+    num = num + w_s.permute(0, 3, 1, 2, 4) * v_new.float()[:, :, :, None]
+    den = w_c.sum(dim=-1, keepdim=True) + w_s
+    return num / den.permute(0, 3, 1, 2, 4)
 
 
 def decode_attention(p: dict, x, pos, k_cache, v_cache, *, num_heads: int,
@@ -151,44 +367,35 @@ def decode_attention(p: dict, x, pos, k_cache, v_cache, *, num_heads: int,
     the softmax as one more lane (a two-part softmax), as in the
     reference, whose caller appends them once outside its layer loop.
     Cross attention (``is_cross``) reads the first ``cross_len`` [B]
-    entries and ropes nothing.  -> [B, 1, d]."""
+    entries and ropes nothing.  On a mesh whose model axis divides the
+    heads (``head_shards``) each rank reads its own KV heads of the
+    caches (replicated over the model axis: a local slice) for its query
+    heads.  -> [B, 1, d]."""
     b = x.shape[0]
-    t = k_cache.shape[1]
     g = num_heads // num_kv_heads
-    scale = head_dim ** -0.5
+    core = functools.partial(_decode_core, scale=head_dim ** -0.5,
+                             softcap=softcap, window=window,
+                             is_cross=is_cross)
+    hs = head_shards(x, p["wq"], num_heads, num_kv_heads)
+    if hs is not None:
+        q = hs.local(x @ p["wq"], 2)
+        bl = q.shape[0]
+        q = q.reshape(bl, 1, hs.hq, head_dim)
+        pos = hs.rows(pos)
+        if not is_cross:
+            q = rope(q, pos[:, None], rope_theta)
+        o = core(q.reshape(bl, 1, hs.kvh, hs.hq // hs.kvh, head_dim), pos,
+                 hs.kv_heads(k_cache), hs.kv_heads(v_cache),
+                 cross_len=None if cross_len is None else hs.rows(cross_len),
+                 kv_new=None if kv_new is None else tuple(
+                     hs.kv_heads(t) for t in kv_new))
+        o = hs.gather(o.reshape(bl, 1, hs.hq * head_dim).to(x.dtype))
+        return o @ p["wo"]
     q = _proj(x, p["wq"]).reshape(b, 1, num_heads, head_dim)
     if not is_cross:
         q = rope(q, pos[:, None], rope_theta)
-    q = q.reshape(b, 1, num_kv_heads, g, head_dim)
-    kpos = torch.arange(t, device=x.device)[None, :]
-    if is_cross:
-        mask = (kpos < cross_len[:, None])[:, None, :]
-    else:
-        diff = pos.long()[:, None, None] - kpos[:, None, :]      # [B, 1, T]
-        mask = diff >= 1                                 # strictly older
-        if window > 0:
-            mask = mask & (diff < window)
-    logits = torch.einsum("bskgd,btkd->bkgst", q.float(),
-                          k_cache.float()) * scale
-    if softcap > 0.0:
-        logits = torch.tanh(logits / softcap) * softcap
-    logits = torch.where(mask[:, None, None], logits,
-                         torch.full_like(logits, NEG_INF))
-    if kv_new is not None:
-        k_new, v_new = kv_new
-        l_self = torch.einsum("bskgd,bskd->bkgs", q.float(),
-                              k_new.float())[..., None] * scale
-        if softcap > 0.0:
-            l_self = torch.tanh(l_self / softcap) * softcap
-        m = torch.maximum(logits.amax(dim=-1, keepdim=True), l_self)
-        w_c = torch.exp(logits - m)
-        w_s = torch.exp(l_self - m)                       # [B,KVH,G,1,1]
-        num = _weighted_values(w_c, v_cache)
-        num = num + w_s.permute(0, 3, 1, 2, 4) * v_new.float()[:, :, :, None]
-        den = w_c.sum(dim=-1, keepdim=True) + w_s
-        o = num / den.permute(0, 3, 1, 2, 4)
-    else:
-        o = _weighted_values(torch.softmax(logits, dim=-1), v_cache)
+    o = core(q.reshape(b, 1, num_kv_heads, g, head_dim), pos, k_cache,
+             v_cache, cross_len=cross_len, kv_new=kv_new)
     o = o.reshape(b, 1, num_heads * head_dim).to(x.dtype)
     return o @ p["wo"]
 

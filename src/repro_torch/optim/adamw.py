@@ -24,8 +24,10 @@ leading L axis) across.
 On a mesh the parameters are DTensors (``dist.sharding``) and
 ``state_shardings`` gives the state's placements, ZeRO-3 included:
 ``init(model, shardings)`` lays each state leaf out on them, and
-``update`` runs unchanged on DTensors (the master -> parameter copy
-all-gathers a ZeRO-sharded master into its replicated parameter).
+``update`` runs on DTensors: each gradient is reduced into its master's
+placements (a reduce-scatter of a partial sum) before the moments read
+it, and the master -> parameter copy all-gathers a ZeRO-sharded master
+into its replicated parameter.
 """
 from __future__ import annotations
 
@@ -145,8 +147,16 @@ def update(cfg: AdamWConfig, grads: dict, opt_state: dict,
     for name, p in model.named_parameters():
         m, v, w = (opt_state[k][name] for k in ("m", "v", "master"))
         g = grads[name]
-        g = (torch.zeros_like(w) if g is None
-             else g.to(f32, copy=True)).mul_(scale)
+        if g is None:
+            g = torch.zeros_like(w)
+        else:
+            g = g.to(f32, copy=True)
+            if isinstance(g, DTensor):
+                # a partial sum reduced into the master's layout first:
+                # the square below must be of the sum, as the reference's
+                # partitioner reduces it (partial squares can sum below 0)
+                g = g.redistribute(g.device_mesh, w.placements)
+        g.mul_(scale)
         m.mul_(b1).add_(g * (1 - b1))
         sq = (g * (1 - b2)).mul_(g)
         v.mul_(b2).add_(sq)

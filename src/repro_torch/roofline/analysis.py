@@ -121,7 +121,7 @@ class StepCounter(TorchDispatchMode):
     While it is entered it wraps DTensor's shape inference, so the ops run
     there are not counted."""
 
-    def __init__(self):
+    def __init__(self, trace_bytes: int | None = None):
         super().__init__()
         self.flops = 0
         self.bytes = 0
@@ -131,6 +131,12 @@ class StepCounter(TorchDispatchMode):
         self.peak_new = 0
         self._refs: dict = {}
         self._inferring = 0
+        #: with ``trace_bytes``: the storages of at least that many bytes
+        #: alive at the peak, as (bytes, op, the port's source line that
+        #: ran it), largest first
+        self.trace_bytes = trace_bytes
+        self.peak_storages: list = []
+        self._made: dict = {}
 
     def __enter__(self):
         from torch.distributed.tensor._sharding_prop import ShardingPropagator
@@ -157,20 +163,27 @@ class StepCounter(TorchDispatchMode):
             self._saved_prop
         return super().__exit__(*exc)
 
-    def _track(self, t: torch.Tensor):
+    def _track(self, t: torch.Tensor, op: str = ""):
         st = t.untyped_storage()
         key = id(st)
         if key in self._refs:
             return
         n = st.nbytes()
         self.live += n
-        self.peak_new = max(self.peak_new, self.live)
 
         def freed(_, key=key, n=n):
             self.live -= n
             self._refs.pop(key, None)
+            self._made.pop(key, None)
 
         self._refs[key] = weakref.ref(st, freed)
+        if self.trace_bytes is not None and n >= self.trace_bytes:
+            self._made[key] = (n, op, _port_line())
+        if self.live > self.peak_new:
+            self.peak_new = self.live
+            if self.trace_bytes is not None:
+                self.peak_storages = sorted(self._made.values(),
+                                            reverse=True)
 
     def known(self, tensors):
         """Mark storages that exist before the step (its arguments), so an
@@ -212,13 +225,29 @@ class StepCounter(TorchDispatchMode):
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
         self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
         for o in outs:
-            self._track(o)
+            self._track(o, name)
         return out
 
     def to_json(self) -> dict:
-        return {"flops": self.flops, "bytes": self.bytes,
-                "collectives": dict(self.collectives), "ops": self.ops,
-                "peak_new_bytes": self.peak_new}
+        out = {"flops": self.flops, "bytes": self.bytes,
+               "collectives": dict(self.collectives), "ops": self.ops,
+               "peak_new_bytes": self.peak_new}
+        if self.trace_bytes is not None:
+            out["peak_storages"] = [list(x) for x in self.peak_storages]
+        return out
+
+
+def _port_line() -> str:
+    """``file:line`` of the innermost frame of the port's own code (this
+    module and torch excluded)."""
+    import traceback
+
+    for fr in reversed(traceback.extract_stack()):
+        path = fr.filename.replace("\\", "/")
+        if "repro_torch/" in path and not path.endswith(
+                "roofline/analysis.py"):
+            return f"{path[path.rindex('repro_torch/'):]}:{fr.lineno}"
+    return "?"
 
 
 @dataclasses.dataclass

@@ -147,6 +147,28 @@ def test_train_cell_remat(mesh, arch, monkeypatch):
     assert "remat" not in fwd and "remat" not in dec
 
 
+@pytest.mark.parametrize("mesh", ["2x2"], indirect=True)
+def test_run_cell_lists_peak_storages(mesh):
+    """``trace_bytes`` lists the storages alive at the peak, largest
+    first, each with its op and the port's line; the counts are the same
+    as without it.  A long prefill's peak is its attention scores."""
+    cfg = widened("deepseek-7b")
+    shape = configs.ShapeConfig("prefill_q", 6144, 4, "prefill")
+    score = 2 * cfg.num_heads * 2048 * 6144 * 4        # rows x heads x qc x S
+    rec = dryrun.run_cell("deepseek-7b", shape, mesh=mesh, cfg=cfg,
+                          roofline=False, trace_bytes=score)
+    plain = dryrun.run_cell("deepseek-7b", shape, mesh=mesh, cfg=cfg,
+                            roofline=False)
+    assert rec["memory"] == plain["memory"]
+    listed = rec["counted"]["peak_storages"]
+    assert listed and all(n >= score for n, _, _ in listed)
+    assert [n for n, _, _ in listed] == sorted(
+        (n for n, _, _ in listed), reverse=True)
+    assert all(where.startswith("repro_torch/models/layers.py:")
+               for _, _, where in listed)
+    assert sum(n for n, _, _ in listed) <= rec["counted"]["peak_new_bytes"]
+
+
 def test_main_resumes_skips_and_fails(tmp_path, monkeypatch):
     """``main`` writes the documented long_500k skips, records a failing
     cell and exits 1; rerun, it resumes: only the failed cell runs again,
