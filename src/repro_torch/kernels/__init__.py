@@ -8,6 +8,9 @@
                  the L1-over-L2 hierarchy (csrc/replay_hier.cu)
     paged_attention — kernel 5: one paged GQA decode step
                  (csrc/paged_attention.cu)
+    adamw      — the optimizer's passes over every leaf, the gradients'
+                 sum of squares and the AdamW update, as torch.library
+                 ops (csrc/adamw.cu; no Pallas counterpart)
     ops        — the wrappers the backends and the serving model call
     ref        — plain torch versions of kernels 1, 2 and 5
     _build     — nvcc build into kernels/.build/ and ctypes loading

@@ -5,10 +5,12 @@ interface (``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 -shared -Xcompiler -fPIC``; never ``--use_fast_math``: HYPERBOLIC's scores
 need IEEE division, paged attention IEEE exp and tanh).  Libraries go to
 ``kernels/.build/`` (gitignored), named by a digest of every source and
-the flags, so an edited kernel is rebuilt.  On first use all sources
-compile at once, one ``nvcc`` each, and ``ptxas -v`` reports (registers,
-shared memory, spills) are kept for ``build_log``.  A failed build or
-load raises ``RuntimeError``.
+the flags, so an edited kernel is rebuilt.  On first use the sources of a
+group (``GROUPS``) compile at once, one ``nvcc`` each, and ``ptxas -v``
+reports (registers, shared memory, spills) are kept for ``build_log``:
+the optimizer's pass builds alone, in seconds, so training can run while
+the cache and serving kernels build.  A failed build or load raises
+``RuntimeError``.
 """
 from __future__ import annotations
 
@@ -22,11 +24,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / ".build"
-SOURCES = ("kway_probe", "replay", "replay_hier", "paged_attention")
+#: the sources ``library`` builds together: the optimizer's, then the rest
+GROUPS = (("adamw",),
+          ("kway_probe", "replay", "replay_hier", "paged_attention"))
+SOURCES = tuple(n for group in GROUPS for n in group)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_locks = {group: threading.Lock() for group in GROUPS}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -55,12 +60,12 @@ def _paths(name: str, digest: str) -> tuple[Path, Path]:
     return stem.with_suffix(".so"), stem.with_suffix(".log")
 
 
-def build_all() -> dict[str, Path]:
-    """Compile every source whose library is missing, all in parallel.
-    -> {name: path of its .so}."""
+def build_all(names=SOURCES) -> dict[str, Path]:
+    """Compile each of ``names`` whose library is missing, all in
+    parallel.  -> {name: path of its .so}."""
     digest = _digest()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = {n: _paths(n, digest) for n in SOURCES
+    todo = {n: _paths(n, digest) for n in names
             if not _paths(n, digest)[0].exists()}
     procs = {}
     for name, (so, _) in todo.items():
@@ -80,14 +85,16 @@ def build_all() -> dict[str, Path]:
         os.replace(tmp, so)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return {n: _paths(n, digest)[0] for n in SOURCES}
+    return {n: _paths(n, digest)[0] for n in names}
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    with _lock:
+    """The loaded library of ``csrc/<name>.cu``, built on first use with
+    the rest of its group (and under that group's lock only)."""
+    group = next(g for g in GROUPS if name in g)
+    with _locks[group]:
         if name not in _libs:
-            for n, path in build_all().items():
+            for n, path in build_all(group).items():
                 try:
                     _libs[n] = ctypes.CDLL(str(path))
                 except OSError as e:

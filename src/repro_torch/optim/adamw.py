@@ -12,9 +12,12 @@ its dtype, so a step holds no second copy of the model or its state.  The
 arithmetic is the reference's, operation for operation in float32 (the
 schedule and the bias corrections too, on the device): the clip scale
 from the global norm, then per leaf ``m``, ``v``, the bias-corrected
-update and the decayed master.  A parameter whose ``.grad`` is None (one
-the loss does not reach: mamba2's ``ln2``) takes a zero gradient, as
-``jax.grad`` gives it: its moments and its weight decay still move.
+update and the decayed master.  The two passes over the leaves (the norm,
+the update) are the ops of ``kernels/adamw.py``: one hand-written CUDA
+kernel pass each on the card, the plain torch version on the CPU.  A
+parameter whose ``.grad`` is None (one the loss does not reach: mamba2's
+``ln2``) takes a zero gradient, as ``jax.grad`` gives it: its moments and
+its weight decay still move.
 
 Schedules: cosine (default), WSD (warmup-stable-decay, minicpm
 [arXiv:2404.06395]) and const.  ``state_from_numpy`` / ``state_to_numpy``
@@ -24,10 +27,11 @@ leading L axis) across.
 On a mesh the parameters are DTensors (``dist.sharding``) and
 ``state_shardings`` gives the state's placements, ZeRO-3 included:
 ``init(model, shardings)`` lays each state leaf out on them, and
-``update`` runs on DTensors: each gradient is reduced into its master's
-placements (a reduce-scatter of a partial sum) before the moments read
-it, and the master -> parameter copy all-gathers a ZeRO-sharded master
-into its replicated parameter.
+``update`` runs on their local tensors: each gradient is reduced into
+its master's placements (a reduce-scatter of a partial sum) before the
+passes read it, the local sums of squares are summed over the mesh dims
+that shard them, and the master -> parameter copy all-gathers a
+ZeRO-sharded master into its replicated parameter.
 """
 from __future__ import annotations
 
@@ -37,9 +41,10 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.dist import sharding as shd
+from repro_torch.kernels import adamw as kadamw
 from repro_torch.models import lm
 
 
@@ -110,14 +115,40 @@ def init(model: torch.nn.Module, shardings: dict | None = None) -> dict:
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of every gradient's squares, in float32 (None
-    leaves count zero)."""
+    leaves count zero): the ``adamw_sumsq`` pass, plain on the CPU."""
+    grads = [g for g in grads if g is not None]
+    return torch.sqrt(kadamw.sumsq(grads))
+
+
+def _sumsq(groups: dict, mesh) -> torch.Tensor:
+    """The global sum of squares from each rank's local gradients,
+    grouped by the mesh dims that shard them (one group, (), off a mesh):
+    each group's local sum is summed over exactly those dims (a
+    replicated dim holds the same elements on every rank, so each element
+    counts once)."""
     total = None
-    for g in grads:
-        if g is None:
-            continue
-        sq = torch.sum(torch.square(g.to(torch.float32)))
+    for dims, gs in groups.items():
+        sq = kadamw.sumsq(gs)
+        if dims:
+            sq = DTensor.from_local(
+                sq, mesh, [Partial() if d in dims else Replicate()
+                           for d in range(mesh.ndim)],
+                run_check=False).full_tensor()
         total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return total
+
+
+def step_scalars(cfg: AdamWConfig, step: torch.Tensor, sq: torch.Tensor):
+    """The step's float32 0-d scalars on the device, computed as the
+    reference does: (grad norm, clip scale, lr, bc1, bc2) from the
+    advanced ``step`` and the gradients' sum of squares ``sq``."""
+    s = step.to(torch.float32)
+    gnorm = torch.sqrt(sq)
+    scale = torch.clamp(torch.full_like(gnorm, cfg.grad_clip)
+                        / (gnorm + 1e-9), max=1.0)
+    bc1 = 1 - torch.pow(torch.full_like(s, cfg.b1), s)
+    bc2 = 1 - torch.pow(torch.full_like(s, cfg.b2), s)
+    return gnorm, scale, schedule_fn(cfg)(step), bc1, bc2
 
 
 @torch.no_grad()
@@ -125,44 +156,49 @@ def update(cfg: AdamWConfig, grads: dict, opt_state: dict,
            model: torch.nn.Module):
     """One AdamW step on ``grads`` ({name: gradient or None}), in place.
     Returns (model, opt_state, {"grad_norm", "lr"}) with the metrics as
-    float32 0-d tensors (no host sync)."""
+    float32 0-d tensors (no host sync).
+
+    Two passes over every leaf (``kernels/adamw.py``): the sum of squares,
+    then the update, each one kernel launch on the card whatever the leaf
+    count.  On a mesh both run on each rank's local tensors: a gradient is
+    first reduced into its master's placements (the square must be of the
+    sum, as the reference's partitioner reduces it: partial squares can
+    sum below 0), and a parameter whose placements differ from its
+    master's (ZeRO-3) takes the master by a DTensor copy (an all-gather)
+    after the pass."""
     step = opt_state["step"]
     step += 1
     f32 = torch.float32
-    s = step.to(f32)
-    lr = schedule_fn(cfg)(step)
 
-    gnorm = global_norm(grads.values())
-    scale = torch.clamp(torch.full_like(gnorm, cfg.grad_clip)
-                        / (gnorm + 1e-9), max=1.0)
-
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - torch.pow(torch.full_like(s, b1), s)
-    bc2 = 1 - torch.pow(torch.full_like(s, b2), s)
-
-    # each line is the reference's expression, rounded in the same order:
-    #   m = b1 * m + (1 - b1) * g;  v = b2 * v + (1 - b2) * g * g
-    #   master = master - lr * ((m / bc1) / (sqrt(v / bc2) + eps)
-    #                           + weight_decay * master)
+    leaves, gathers, groups, mesh = [], [], {}, None
     for name, p in model.named_parameters():
         m, v, w = (opt_state[k][name] for k in ("m", "v", "master"))
         g = grads[name]
-        if g is None:
-            g = torch.zeros_like(w)
-        else:
-            g = g.to(f32, copy=True)
-            if isinstance(g, DTensor):
-                # a partial sum reduced into the master's layout first:
-                # the square below must be of the sum, as the reference's
-                # partitioner reduces it (partial squares can sum below 0)
-                g = g.redistribute(g.device_mesh, w.placements)
-        g.mul_(scale)
-        m.mul_(b1).add_(g * (1 - b1))
-        sq = (g * (1 - b2)).mul_(g)
-        v.mul_(b2).add_(sq)
-        upd = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-        upd.add_(w * cfg.weight_decay)
-        w.sub_(upd.mul_(lr))
+        dims = ()
+        if isinstance(w, DTensor):
+            mesh = w.device_mesh
+            if g is not None:
+                if g.placements != w.placements:
+                    g = g.to(f32).redistribute(mesh, w.placements)
+                g = g.to_local()
+            dims = tuple(d for d, pl in enumerate(w.placements)
+                         if pl.is_shard())
+            if p.placements == w.placements:
+                p = p.to_local()
+            else:
+                gathers.append((p, w))
+                p = None
+            m, v, w = m.to_local(), v.to_local(), w.to_local()
+        if g is not None:
+            groups.setdefault(dims, []).append(g)
+        leaves.append((g, m, v, w, p))
+
+    sq = _sumsq(groups, mesh) if groups else \
+        torch.zeros((), dtype=f32, device=step.device)
+    gnorm, scale, lr, bc1, bc2 = step_scalars(cfg, step, sq)
+    kadamw.adamw_step_(*map(list, zip(*leaves)), scale, lr, bc1, bc2,
+                       cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay)
+    for p, w in gathers:
         p.copy_(w)
     return model, opt_state, {"grad_norm": gnorm, "lr": lr}
 

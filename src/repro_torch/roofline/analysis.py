@@ -112,6 +112,28 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+#: arguments an op mutates without reading them (a schema marks an
+#: argument written, not whether it is also read): by the op's name
+WRITE_ONLY = {"repro_torch::adamw_step_": ("params",)}
+
+
+def _mutated(func, args, kwargs) -> tuple[list, list]:
+    """The tensors ``func``'s schema marks written, and those of them it
+    only writes (``WRITE_ONLY``)."""
+    schema = func._schema
+    only_names = WRITE_ONLY.get(schema.name, ())
+    written, only = [], []
+    for i, a in enumerate(schema.arguments):
+        if a.alias_info is None or not a.alias_info.is_write:
+            continue
+        val = args[i] if i < len(args) else kwargs.get(a.name)
+        ts = [t for t in tree_flatten(val)[0] if isinstance(t, torch.Tensor)]
+        written += ts
+        if a.name in only_names:
+            only += ts
+    return written, only
+
+
 class StepCounter(TorchDispatchMode):
     """Counts one rank's work over a block of eager torch code: ``flops``,
     ``bytes``, ``collectives`` ({kind: result bytes}), ``live`` /
@@ -223,7 +245,14 @@ class StepCounter(TorchDispatchMode):
         packet = func._overloadpacket
         if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
-        self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
+        written = outs
+        if not outs:
+            # an op that returns nothing (the optimizer's in-place pass)
+            # writes the arguments it mutates
+            written, only = _mutated(func, args, kwargs)
+            only = set(map(id, only))
+            ins = [t for t in ins if id(t) not in only]
+        self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, written))
         for o in outs:
             self._track(o, name)
         return out

@@ -39,13 +39,14 @@ from repro_torch.models import layers as L
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 #: the port's temp bytes over the reference's, at most.  Measured: 0.003-
-#: 1.035, and 1.362 in deepseek-7b-vocab's train_s cell, whose peak is
-#: the eager AdamW's per-leaf temporaries on its largest leaf.  The same
-#: step with a global-shaped loss backward, batch-only attention heads,
-#: four score temporaries and AdamW squaring partial gradients: 1.415-
-#: 3.620 in eight cells (every prefill_q, deepseek-7b-vocab's train_s and
-#: train_l).
-TEMP_FACTOR = 1.4
+#: 1.035 (the highest mixtral-8x22b's prefill_q), deepseek-7b-vocab's
+#: train_s 0.884 with the optimizer's one pass over every leaf; 1.362
+#: with the eager per-leaf AdamW, whose temporaries on the largest leaf
+#: set that cell's peak.  The same step with a global-shaped loss
+#: backward, batch-only attention heads, four score temporaries and
+#: AdamW squaring partial gradients: 1.415-3.620 in eight cells (every
+#: prefill_q, deepseek-7b-vocab's train_s and train_l).
+TEMP_FACTOR = 1.1
 WIDE = dict(d_model=512, d_ff=2048, vocab_size=4096)
 #: name -> (arch, overrides of its smoke config)
 CONFIGS = {
@@ -73,6 +74,10 @@ def config(name):
 
 @pytest.fixture(scope="module")
 def results():
+    return run_cells()
+
+
+def run_cells():
     """{(config, shape name): (reference record, port record)}: the
     reference's cells in one subprocess, started first and read after the
     port's cells have run here."""
@@ -153,3 +158,11 @@ def test_heads_partitioned_as_reference(results, name):
             assert plan is None, (name, shape.name)
     if name.endswith("-heads"):
         assert plan is not None
+
+
+if __name__ == "__main__":
+    # every cell's temp bytes, port / reference (run from the repo root
+    # with PYTHONPATH=src)
+    for (name, shape), (ref, port) in run_cells()[0].items():
+        a, b = port["memory"]["temp_bytes"], ref["memory"]["temp_bytes"]
+        print(f"{name} {shape}: port {a} B, reference {b} B, {a / b:.4f}x")

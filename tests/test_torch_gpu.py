@@ -10,8 +10,10 @@ The cache kernels' comparisons are exact: the cache is integer state, and
 the scores are float32 computed the same way on both sides.  Paged
 attention (kernel 5) sums in another order than its plain version, so it
 is held at the reference's tolerances, 2e-5 in float32 and 3e-2 in
-bfloat16.  This file imports no JAX, so it runs where only torch is
-installed.
+bfloat16.  The optimizer's update rounds each operation as its plain
+version does: bit for bit at equal clip scales; its norm sums in another
+order (in double), so it is held to a float64 sum at 1e-6.  This file
+imports no JAX, so it runs where only torch is installed.
 """
 import time
 
@@ -24,6 +26,7 @@ from repro_torch.core import (admission, hashing, hierarchy, kway, router,
 from repro_torch.core.backend import make_backend
 from repro_torch.core.kway import KWayConfig
 from repro_torch.core.policies import Policy
+from repro_torch.kernels import adamw as kadamw
 from repro_torch.kernels import kway_probe as kp
 from repro_torch.kernels import paged_attention as kpa
 from repro_torch.kernels import ref as kref
@@ -1352,3 +1355,175 @@ def test_train_one_device_mesh_equals_no_mesh(one_rank_group, cuda):
         torch.use_deterministic_algorithms(False)
     assert all(isinstance(p, DTensor) for p in on.model.parameters())
     np.testing.assert_allclose(on.losses, off.losses, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the optimizer's pass over every leaf (csrc/adamw.cu)
+# ---------------------------------------------------------------------------
+
+#: leaf sizes: odd, below one vector, zero, one past a chunk, and a few
+#: chunks' worth (the fixed grid strides over them)
+ADAMW_SIZES = [1, 3, 4, 1027, 0, kadamw.CHUNK + 5, 33, 3 * 2**20 + 7]
+
+
+def _adamw_leaves(dev, seed=0, gscale=1e-2):
+    """(grads, m, v, master, params) on ``dev``: bf16 and float32
+    gradients and parameters mixed, one gradient None, one parameter
+    None."""
+    rng = np.random.default_rng(seed)
+    n = len(ADAMW_SIZES)
+    gdt = [torch.bfloat16, torch.float32, None] + [torch.bfloat16] * (n - 3)
+    pdt = [torch.bfloat16, torch.float32, torch.bfloat16, None] \
+        + [torch.bfloat16, torch.float32] * n
+
+    def f32(k, s=1.0):
+        return torch.from_numpy(
+            rng.standard_normal(k).astype(np.float32) * s).to(dev)
+
+    grads = [None if d is None else f32(k, gscale).to(d)
+             for k, d in zip(ADAMW_SIZES, gdt)]
+    m = [f32(k, 1e-3) for k in ADAMW_SIZES]
+    v = [f32(k, 1e-3).abs() for k in ADAMW_SIZES]
+    master = [f32(k) for k in ADAMW_SIZES]
+    params = [None if d is None else w.to(d) for w, d in zip(master, pdt)]
+    return grads, m, v, master, params
+
+
+def _clone(leaves):
+    return tuple([None if t is None else t.clone() for t in ts]
+                 for ts in leaves)
+
+
+def _adamw_scalars(dev, scale):
+    return [scale] + [torch.tensor(x, dtype=torch.float32, device=dev)
+                      for x in (3e-3, 0.1, 0.05)]
+
+
+ADAMW_HYPER = (0.9, 0.95, 1e-8, 0.1)
+
+
+def _clip_scale(sq, clip):
+    gnorm = torch.sqrt(sq)
+    return torch.clamp(torch.full_like(gnorm, clip) / (gnorm + 1e-9),
+                       max=1.0)
+
+
+def test_adamw_kernel_equals_plain_clip_inactive(cuda):
+    """Scale exactly 1.0: m, v, master and every parameter equal to the
+    plain version's bit for bit; one launch."""
+    leaves = _adamw_leaves(cuda)
+    plain = _clone(leaves)
+    scale = _clip_scale(kadamw.sumsq([g for g in leaves[0]
+                                      if g is not None]), 1e6)
+    assert float(scale) == 1.0
+    before = kadamw.LAUNCHES["adamw"]
+    kadamw.adamw_step_(*leaves, *_adamw_scalars(cuda, scale), *ADAMW_HYPER)
+    kadamw.adamw_step_plain(*plain, *_adamw_scalars(cuda, scale),
+                            *ADAMW_HYPER)
+    torch.cuda.synchronize()
+    assert kadamw.LAUNCHES["adamw"] == before + 1
+    for k, (xs, ys) in enumerate(zip(leaves[1:], plain[1:])):
+        for i, (x, y) in enumerate(zip(xs, ys)):
+            assert (x is None) == (y is None)
+            if x is not None:
+                assert torch.equal(x, y), (k, i, ADAMW_SIZES[i])
+
+
+def test_adamw_kernel_near_plain_clip_active(cuda):
+    """Each side's own norm (the kernel's and the plain sum), the clip
+    active: every state leaf within 1e-6 relative (absolute against the
+    leaf's largest value), the parameters within one bf16 ulp."""
+    leaves = _adamw_leaves(cuda, gscale=1.0)
+    plain = _clone(leaves)
+    gk = [g for g in leaves[0] if g is not None]
+    sk = _clip_scale(kadamw.sumsq(gk), 1.0)
+    sp = _clip_scale(kadamw.sumsq_plain(gk), 1.0)
+    assert float(sk) < 1.0
+    np.testing.assert_allclose(float(sk), float(sp), rtol=1e-6)
+    kadamw.adamw_step_(*leaves, *_adamw_scalars(cuda, sk), *ADAMW_HYPER)
+    kadamw.adamw_step_plain(*plain, *_adamw_scalars(cuda, sp), *ADAMW_HYPER)
+    for xs, ys in zip(leaves[1:4], plain[1:4]):
+        for x, y in zip(xs, ys):
+            if x.numel():
+                np.testing.assert_allclose(
+                    x.cpu().numpy(), y.cpu().numpy(), rtol=1e-6,
+                    atol=1e-6 * float(y.abs().max()))
+    for x, y in zip(leaves[4], plain[4]):
+        if x is not None and x.numel():
+            diff = (x.float() - y.float()).abs()
+            assert float((diff - 2 ** -7 * y.float().abs()).max()) <= 0
+
+
+def test_adamw_sumsq_against_float64_and_repeatable(cuda):
+    """The norm's pass within 1e-6 of a float64 sum of the float32
+    squares, the same bits over two runs, zero for zero-size leaves only."""
+    grads = [g for g in _adamw_leaves(cuda, seed=3, gscale=1.0)[0]
+             if g is not None]
+    want = sum(float((g.double() ** 2).sum()) for g in grads)
+    a, b = kadamw.sumsq(grads), kadamw.sumsq(grads)
+    assert a.dtype == torch.float32 and a.shape == ()
+    assert torch.equal(a, b)
+    assert abs(float(a) - want) <= 1e-6 * want, (float(a), want)
+    empty = [torch.empty(0, dtype=torch.bfloat16, device=cuda)]
+    assert float(kadamw.sumsq(empty)) == 0.0
+
+
+def test_adamw_kernel_rejects_bad_leaves(cuda):
+    """Non-contiguous, mismatched or wrongly typed leaves raise; nothing
+    falls back to the plain version."""
+    grads, m, v, master, params = _adamw_leaves(cuda)
+    sc = _adamw_scalars(cuda, torch.ones((), device=cuda))
+    wide = torch.zeros(2 * master[3].numel(), device=cuda)
+    bad = [
+        (grads[:3] + [wide[::2]] + grads[4:], m, v, master, params),
+        (grads, m, v, [master[0].double()] + master[1:], params),
+        (grads, m, [v[0][:0]] + v[1:], master, params),
+    ]
+    for case in bad:
+        with pytest.raises(ValueError):
+            kadamw.adamw_step_(*case, *sc, *ADAMW_HYPER)
+    with pytest.raises(ValueError):
+        kadamw.sumsq([wide[::2]])
+    with pytest.raises(ValueError):
+        kadamw.sumsq([grads[0].half()])
+
+
+def test_adamw_update_on_the_card(cuda):
+    """``adamw.update`` on a smoke model on the card: one launch of each
+    pass, no host sync, three steps within 1e-5 of the same steps on the
+    CPU (whose norm sums in another order)."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cfg = configs.get("gemma2-2b").smoke
+    ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, grad_clip=0.05)
+    rng = np.random.default_rng(1)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        model = lm.init_params(cfg, seed=0, device="cpu").to(dev)
+        state = adamw.init(model)
+        launches = dict(kadamw.LAUNCHES)
+        for step in range(3):
+            grads = {n: torch.from_numpy(rng.standard_normal(
+                tuple(p.shape)).astype(np.float32)).to(dev, p.dtype)
+                for n, p in model.named_parameters()}
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                _, _, metrics = adamw.update(ocfg, grads, state, model)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        if dev.type == "cuda":
+            assert kadamw.LAUNCHES["adamw"] == launches["adamw"] + 3
+            assert kadamw.LAUNCHES["adamw_sumsq"] == \
+                launches["adamw_sumsq"] + 3
+        rng = np.random.default_rng(1)
+        runs.append((float(metrics["grad_norm"]),
+                     {n: t.cpu() for n, t in state["master"].items()}))
+    (na, wa), (nb, wb) = runs
+    np.testing.assert_allclose(na, nb, rtol=1e-5)
+    for name in wa:
+        np.testing.assert_allclose(wa[name].numpy(), wb[name].numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)

@@ -44,6 +44,7 @@ from repro.core.sharded import ShardedConfig as JShardedConfig
 from repro_torch import configs
 from repro_torch.launch import train
 from repro_torch.models import lm
+from repro_torch.optim import adamw
 from repro_torch.roofline.analysis import StepCounter
 
 WORLD = 4
@@ -167,6 +168,15 @@ def _worker(rank: int, tmp: str):
     out["sharded_state"] = sum(
         any(isinstance(x, Shard) for x in t.placements)
         for t in run.opt_state["master"].values())
+    # one more update on the last step's gradients: its norm (local sums
+    # of squares summed over the mesh dims that shard each leaf) against
+    # the gathered gradients' norm
+    grads = {n: p.grad for n, p in run.model.named_parameters()}
+    want = sum(float(g.full_tensor().double().square().sum())
+               for g in grads.values() if g is not None) ** 0.5
+    _, _, om = adamw.update(adamw.AdamWConfig(), grads, run.opt_state,
+                            run.model)
+    out["grad_norm"] = [float(om["grad_norm"]), want]
 
     # the elastic restore: the one-device checkpoint onto the 2x2 mesh
     rest = train.run(train.parse(TRAIN + ["--data", "2", "--model", "2",
@@ -401,6 +411,14 @@ def test_mesh_trainer_losses_match_one_device(runs):
     assert got["remat_blocks"] == 3 * widened().num_layers
     np.testing.assert_allclose(got["losses"], one.losses, rtol=1e-3)
     assert len(one.losses) == 3 and np.isfinite(one.losses).all()
+
+
+def test_mesh_optimizer_norm_counts_each_element_once(runs):
+    """The optimizer's norm on the 2x2 mesh (replicated, model-sharded and
+    ZeRO-sharded leaves) equals the norm of the gathered gradients."""
+    got, want = runs[2]["grad_norm"]
+    assert want > 0
+    np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
 def test_vocab_parallel_loss_equals_one_device(runs):

@@ -195,10 +195,12 @@ class _StubLib:
 
 @pytest.mark.parametrize("module,source", [
     ("kway_probe", "kway_probe.cu"), ("replay", "replay.cu"),
-    ("replay", "replay_hier.cu"), ("paged_attention", "paged_attention.cu")])
+    ("replay", "replay_hier.cu"), ("paged_attention", "paged_attention.cu"),
+    ("adamw", "adamw.cu")])
 def test_ctypes_declarations_match_c_entries(monkeypatch, module, source):
-    """Every C entry's parameter list (void* / int / float) equals the
-    argtypes its wrapper declares; a mismatch would only show on the card."""
+    """Every C entry's parameter list (void* / int / long long / float)
+    equals the argtypes its wrapper declares; a mismatch would only show
+    on the card."""
     import ctypes
     import importlib
     import re
@@ -219,7 +221,8 @@ def test_ctypes_declarations_match_c_entries(monkeypatch, module, source):
     assert entries and {n for n, _ in entries} == set(stub.fns)
     for name, params in entries:
         kinds = [ctypes.c_void_p if "*" in p else
-                 ctypes.c_float if "float" in p else ctypes.c_int
+                 ctypes.c_float if "float" in p else
+                 ctypes.c_longlong if "long long" in p else ctypes.c_int
                  for p in params.split(",")]
         assert stub.fns[name].argtypes == kinds, name
         assert stub.fns[name].restype is ctypes.c_int
