@@ -3853,19 +3853,29 @@ MESH_MEMORY_TOL = 0.15
 #: gemma2-2b train_4k at full width cut to 2 layers (None: full depth),
 #: the vocabulary-parallel loss over its 256k lanes (at full depth, 47-84
 #: s of a host core, it would outlast (a)-(c); the CPU sweep runs every
-#: cell at full depth)
+#: cell at full depth); minicpm-2b's prefill at full depth, its 36 heads
+#: in 4 groups of 9 (gcd(36, 16)); mamba2-130m train_4k cut to 2 of 24
+#: layers (13.6 s on the chip machine's host; full depth about 200 s of a
+#: CPU core), its 24 SSD heads 2 a rank and in_proj's product kept
+#: reduce-scattered
 MESH_DRYRUN_CELLS = (("mixtral-8x22b", "decode_32k", None),
                      ("internvl2-2b", "prefill_32k", None),
                      ("deepseek-7b", "prefill_32k", None),
-                     ("gemma2-2b", "train_4k", 2))
-#: the reference's temp bytes a device of each (d) cell, from its compiled
-#: production artifact on a 16x16 mesh of Auto axes (tests/ref_dryrun_auto.py
-#: on the CPU: the reference imports JAX, which this script does not); the
-#: port's may be at most MESH_REF_FACTOR times as large
+                     ("gemma2-2b", "train_4k", 2),
+                     ("minicpm-2b", "prefill_32k", None),
+                     ("mamba2-130m", "train_4k", 2))
+#: the reference's temp bytes a device of each (d) cell at the cell's
+#: depth, from its compiled production artifact on a 16x16 mesh of Auto
+#: axes (tests/ref_dryrun_auto.py on the CPU, ``--cells`` with
+#: ``num_layers`` for a cut cell: the reference imports JAX, which this
+#: script does not); the port's may be at most MESH_REF_FACTOR times as
+#: large
 MESH_REF_TEMP = {("mixtral-8x22b", "decode_32k"): 72529599248,
                  ("internvl2-2b", "prefill_32k"): 2200331064,
                  ("deepseek-7b", "prefill_32k"): 5100174000,
-                 ("gemma2-2b", "train_4k"): 7072525096}
+                 ("gemma2-2b", "train_4k"): 7072525096,
+                 ("minicpm-2b", "prefill_32k"): 10968726704,
+                 ("mamba2-130m", "train_4k"): 517378544}
 MESH_REF_FACTOR = 2.0
 MESH_DRYRUN_OUT = os.path.join(HERE, "chiprun_out", "dryrun")
 

@@ -26,7 +26,9 @@ when the batch divides, as the reference's production artifact),
 mask meets a DTensor as a replicated one).
 
 Memory per device, the reference's ``memory`` fields: ``argument_bytes``
-the local shards of the parameters, optimizer state, inputs and cache;
+the local shards of the parameters, optimizer state, inputs and cache
+that the step reads (XLA's compile drops an argument its computation
+never reads, as mamba2's ``ln2``: its blocks have no MLP);
 ``output_bytes`` what the step returns in storage of its own;
 ``temp_bytes`` the most bytes alive at once that the step created, less
 the outputs.  A train step's FLOPs and bytes include the backward's
@@ -168,7 +170,8 @@ def count_step(fn, args, tensors, trace_bytes: int | None = None):
             seen.add(key)
             out_bytes += shd.local_bytes(t)
     memory = {
-        "argument_bytes": sum(shd.local_bytes(t) for t in tensors),
+        "argument_bytes": sum(shd.local_bytes(t) for t in tensors
+                              if _storages([t]) <= counter.read),
         "output_bytes": out_bytes,
         "temp_bytes": max(counter.peak_new - out_bytes, 0),
         "generated_code_bytes": 0,

@@ -13,6 +13,7 @@ decode's attention is (kernel 5, ``kernels/paged_attention.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -101,19 +102,27 @@ def _attend(q, k, v, mask, scale, softcap):
 
 
 # ---------------------------------------------------------------------------
-# attention on head shards (a mesh whose model axis divides the heads)
+# attention on head shards (a mesh whose model axis shares a factor with
+# the heads)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class HeadShards:
     """One rank's share of an attention layer's heads on a mesh: ``hq``
-    query heads (its slice of the model-sharded projection) and KV heads
-    [kv0, kv0 + kvh), each group of ``hq // kvh`` query heads reading one
-    KV head.  ``kv_sharded``: the
-    K/V projections are split over the model axis as the queries are
-    (``num_kv_heads`` divisible by it); else every rank computes all KV
-    heads and slices the one its query heads read.  ``batch``: the
-    placements of the layer input's batch sharding (data axes only)."""
+    query heads and KV heads [kv0, kv0 + kvh), each group of
+    ``hq // kvh`` query heads reading one KV head.  ``kv_sharded``: the
+    K/V projections are split over the model axis as the queries are;
+    else every rank computes all KV heads and slices the one its query
+    heads read.  ``batch``: the placements of the layer input's batch
+    sharding (data axes only).
+
+    Where the model axis (size m) divides the heads, a rank's heads are
+    its slice of the model-sharded projection (``group`` None).  Else the
+    heads form c = gcd(H, m) groups of H / c: ``group`` is the mesh whose
+    model axis is split into (c, ``peers`` = m / c), and the ``peers``
+    ranks of a group gather their slices into the group's heads, each
+    computing the whole group; ``peer`` is this rank's place in its
+    group, whose columns of the core's output it keeps."""
     mesh: object
     axis: int
     batch: tuple
@@ -121,6 +130,9 @@ class HeadShards:
     kv0: int
     kvh: int
     kv_sharded: bool
+    group: object = None
+    peers: int = 1
+    peer: int = 0
 
     def placements(self, dim: int) -> list:
         """The batch sharding, and ``Shard(dim)`` over the model axis."""
@@ -129,10 +141,28 @@ class HeadShards:
         return [Shard(dim) if m == self.axis else p
                 for m, p in enumerate(self.batch)]
 
+    def _split(self, group_pl, peer_pl) -> list:
+        """Placements on ``group``: the batch sharding, then ``group_pl``
+        over the c groups and ``peer_pl`` over a group's ranks."""
+        b = list(self.batch)
+        return b[:self.axis] + [group_pl, peer_pl] + b[self.axis + 1:]
+
     def local(self, t, dim: int):
-        """A DTensor -> this rank's rows and its slice of dimension
-        ``dim`` (its heads), as a plain tensor."""
-        return t.redistribute(self.mesh, self.placements(dim)).to_local()
+        """A DTensor -> this rank's rows and its heads (dimension ``dim``)
+        as a plain tensor.  In head groups the peers' slices are gathered;
+        the backward sums each gathered slice's gradient over the group
+        (a reduce-scatter), so every column gets its gradient once."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        t = t.redistribute(self.mesh, self.placements(dim)).to_local()
+        if self.group is None:
+            return t
+        t = DTensor.from_local(t, self.group, self._split(Shard(dim),
+                                                          Shard(dim)),
+                               run_check=False)
+        return t.redistribute(self.group, self._split(
+            Shard(dim), Replicate())).to_local(
+                grad_placements=self._split(Shard(dim), Partial()))
 
     def rows(self, t, partial_grad: bool = False):
         """A batch-leading DTensor -> this rank's rows as a plain tensor; a
@@ -157,11 +187,60 @@ class HeadShards:
 
     def gather(self, t):
         """This rank's [b, S, hq * D] -> the DTensor sharded on its last
-        dimension over the model axis and on its batch as the input."""
+        dimension over the model axis and on its batch as the input; in
+        head groups the rank keeps its own columns of the group's."""
         from torch.distributed.tensor import DTensor
 
+        if self.group is not None:
+            w = t.shape[-1] // self.peers
+            t = t[..., self.peer * w:(self.peer + 1) * w]
         return DTensor.from_local(t, self.mesh, self.placements(2),
                                   run_check=False)
+
+    def heads(self, t):
+        """This rank's K or V [b, T, kvh, D] of a split projection -> the
+        DTensor of every KV head: sharded on its heads over the model axis,
+        or over the groups of ``group`` (replicated within a group)."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        if self.group is None:
+            return DTensor.from_local(t, self.mesh, self.placements(2),
+                                      run_check=False)
+        return DTensor.from_local(t, self.group,
+                                  self._split(Shard(2), Replicate()),
+                                  run_check=False)
+
+
+#: (a mesh, its model axis, c) -> (the process group it was built in,
+#: the mesh with that axis split into (c, m / c)); built once a process
+#: group, on every rank alike
+_GROUP_MESHES: dict = {}
+
+
+def _group_mesh(mesh, axis: int, c: int):
+    """``mesh`` over the same ranks, its model axis split into (c, m / c)
+    axes named ``model_group`` and ``model_peer``: rank r of the model
+    axis is peer r % (m / c) of group r // (m / c).  Meshes that compare
+    equal share one, rebuilt when the process group is (the dry run
+    restarts its fake group between meshes, and DTensor's caches may hand
+    back an equal mesh of the group before)."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.device_mesh import DeviceMesh
+
+    world = dist.distributed_c10d._get_default_group()
+    key = (mesh, axis, c)
+    if _GROUP_MESHES.get(key, (None,))[0] is not world:
+        names = list(mesh.mesh_dim_names)
+        shape = list(mesh.shape)
+        m = shape[axis]
+        names[axis:axis + 1] = ["model_group", "model_peer"]
+        shape[axis:axis + 1] = [c, m // c]
+        with unset_fake_temporarily():
+            ranks = mesh.mesh.reshape(shape).tolist()
+            _GROUP_MESHES[key] = (world, DeviceMesh(
+                mesh.device_type, ranks, mesh_dim_names=tuple(names)))
+    return _GROUP_MESHES[key][1]
 
 
 def head_shards(x, wq, num_heads: int, num_kv_heads: int):
@@ -169,17 +248,24 @@ def head_shards(x, wq, num_heads: int, num_kv_heads: int):
     shards, else None (no mesh, or the batch-only path below).
 
     The rule follows the reference's partition, read from its compiled
-    HLO: where the ``model`` axis (size m > 1) shards ``wq``'s output and
-    divides ``num_heads``, the partitioner keeps q's model sharding
-    through the reshape to heads, and each device holds H / m query
-    heads and the KV heads they read: KVH / m where m divides KVH, else
-    the one KV head of its partial group (H / m dividing the group size,
-    e.g. mixtral's 48 / 8 heads on 16, internvl's 16 / 8).  A ``wq`` below
-    the sharding threshold is replicated and the reference keeps every
-    head on every device; so does the port.  Heads that m does not divide
-    (gemma2-2b's 8, hymba-1.5b's 25, minicpm-2b's 36 on a 16-way axis)
-    take the batch-only path: every model rank holds all heads of its
-    rows (``_proj``)."""
+    HLO: where the ``model`` axis (size m > 1) shards ``wq``'s output, the
+    partitioner splits the heads into c = gcd(H, m) groups and keeps each
+    group's H / c heads, with the whole head_dim, on the m / c devices
+    that hold its columns of ``wq``'s output (c = m where m divides H:
+    each device its own H / m heads).  The KV heads split the same way
+    where c divides KVH, else a device holds the one KV head of its
+    group (H / c dividing the group size G, e.g. mixtral's 48 / 8 heads on
+    16, internvl's 16 / 8).  minicpm-2b's 36 heads on a 16-way axis run in
+    4 groups of 9; 6 / 6 heads on 4 in 2 groups of 3, 6 / 2 and 6 / 1 with
+    one KV head a group; 6 / 3 heads on 4 (a group's 3 query heads read
+    parts of two KV heads) keep every head on every device.  A ``wq``
+    below the sharding threshold is replicated, or sharded on its input
+    (gemma2-2b's), and the reference keeps every head on every device, as
+    it does where c is 1 (hymba-1.5b's 25 heads on 16); those take the
+    batch-only path: every model rank holds all heads of its rows
+    (``_proj``)."""
+    import math
+
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     if not (isinstance(x, DTensor) and isinstance(wq, DTensor)):
@@ -192,18 +278,22 @@ def head_shards(x, wq, num_heads: int, num_kv_heads: int):
         return None
     axis = names.index("model")
     m = mesh.size(axis)
-    if m == 1 or num_heads % m or wq.placements[axis] != Shard(1):
+    c = math.gcd(num_heads, m)
+    if c == 1 or wq.placements[axis] != Shard(1):
         return None
-    hq, g = num_heads // m, num_heads // num_kv_heads
-    if num_kv_heads % m and g % hq:
+    hq, g = num_heads // c, num_heads // num_kv_heads
+    kv_sharded = num_kv_heads % c == 0
+    if not kv_sharded and g % hq:
         return None
-    q0 = mesh.get_local_rank(axis) * hq
+    peers = m // c
+    r = mesh.get_local_rank(axis)
+    q0 = r // peers * hq
     batch = tuple(p if p == Shard(0) and names[i] in data_axes(mesh)
                   else Replicate() for i, p in enumerate(x.placements))
-    if num_kv_heads % m == 0:
-        return HeadShards(mesh, axis, batch, hq, q0 // g, num_kv_heads // m,
-                          True)
-    return HeadShards(mesh, axis, batch, hq, q0 // g, 1, False)
+    group = None if peers == 1 else _group_mesh(mesh, axis, c)
+    return HeadShards(mesh, axis, batch, hq, q0 // g,
+                      num_kv_heads // c if kv_sharded else 1, kv_sharded,
+                      group, peers, r % peers)
 
 
 def _attention_core(q, k, v, positions, mask, *, causal_self: bool,
@@ -275,12 +365,11 @@ def attention(p: dict, x, positions, mask=None, kv=None, *, num_heads: int,
 def _attention_on_heads(hs: HeadShards, p, x, positions, mask, kv, core, *,
                         head_dim: int, rope_theta: float, use_rope: bool):
     """``attention`` on one rank's heads: q keeps the projection's model
-    sharding (its local columns are the rank's heads), K / V are the
-    rank's KV heads, the core runs on plain local tensors (DTensor never
-    sees the merged batch x head dimension of its products), and the
-    output re-enters DTensor sharded on its heads for ``wo``."""
-    from torch.distributed.tensor import DTensor
-
+    sharding (its local columns are the rank's heads, or gathered into
+    its head group's), K / V are the rank's KV heads, the core runs on
+    plain local tensors (DTensor never sees the merged batch x head
+    dimension of its products), and the output re-enters DTensor sharded
+    on its columns for ``wo``."""
     q = hs.local(x @ p["wq"], 2)
     b, s = q.shape[:2]
     q = q.reshape(b, s, hs.hq, head_dim)
@@ -291,8 +380,7 @@ def _attention_on_heads(hs: HeadShards, p, x, positions, mask, kv, core, *,
                     for w in ("wk", "wv"))
             if use_rope:
                 k = rope(k, pos, rope_theta)
-            kv = tuple(DTensor.from_local(t, hs.mesh, hs.placements(2),
-                                          run_check=False) for t in (k, v))
+            kv = (hs.heads(k), hs.heads(v))
         else:
             k, v = (_proj(x, p[w]).reshape(*x.shape[:2], -1, head_dim)
                     for w in ("wk", "wv"))
@@ -396,7 +484,9 @@ def decode_attention(p: dict, x, pos, k_cache, v_cache, *, num_heads: int,
         q = rope(q, pos[:, None], rope_theta)
     o = core(q.reshape(b, 1, num_kv_heads, g, head_dim), pos, k_cache,
              v_cache, cross_len=cross_len, kv_new=kv_new)
-    o = o.reshape(b, 1, num_heads * head_dim).to(x.dtype)
+    # batch-only, as in ``attention``: the backward of the product with a
+    # model-sharded ``wo`` cannot unflatten its heads otherwise
+    o = batch_only(o.reshape(b, 1, num_heads * head_dim).to(x.dtype))
     return o @ p["wo"]
 
 
@@ -635,23 +725,153 @@ def _proj(x, w):
     return batch_only(x @ w)
 
 
-def ssd_scan(p: dict, u, dims: SSMDims, chunk: int = 128, init_state=None):
-    """Chunked SSD forward (training / prefill) of the Mamba2 block:
-    in_proj -> causal conv -> selective state update, quadratic within a
-    chunk and recurrent across chunks -> gated RMSNorm -> out_proj.
+#: the remat policy's word on the ops run under ``remat_mark``: "save" or
+#: "recompute" (None: its own rule, ``models.lm.remat_policy``)
+REMAT_MARK = [None]
 
-    ``u`` [B, S, d_model] with S a multiple of ``min(chunk, S)``;
-    ``init_state`` (ssm [B, nh, hp, N], conv [B, k-1, C]) or None.
-    -> (y [B, S, d_model], (ssm state float32, conv state))."""
-    b, s, _ = u.shape
-    di, n, nh, hp = dims.d_inner, dims.state, dims.nheads, dims.head_dim
+
+@contextlib.contextmanager
+def remat_mark(kind: str):
+    prev = REMAT_MARK[0]
+    REMAT_MARK[0] = kind
+    try:
+        yield
+    finally:
+        REMAT_MARK[0] = prev
+
+
+@dataclasses.dataclass(frozen=True)
+class SSDHeads:
+    """One rank's share of a Mamba2 block on a mesh whose ``model`` axis
+    (size m, this rank ``rank``) shards ``out_proj``'s input: ``heads``
+    of the SSD core, and ``torch.chunk``'s slices of the
+    in_proj columns, the conv channels and d_inner (an uneven ``Shard``:
+    24 heads over 16 ranks give twelve ranks 2 heads and four none).
+    ``batch``: the placements of the layer input's batch sharding (data
+    axes only)."""
+    mesh: object
+    axis: int
+    batch: tuple
+    rank: int
+    m: int
+    heads: slice
+
+    def cols(self, dim: int = 2) -> list:
+        """The batch sharding, and ``Shard(dim)`` over the model axis."""
+        from torch.distributed.tensor import Shard
+
+        return [Shard(dim) if i == self.axis else p
+                for i, p in enumerate(self.batch)]
+
+    def chunk(self, n: int) -> slice:
+        """This rank's slice of ``n`` lanes split as ``Shard`` splits."""
+        return _chunk(n, self.m, self.rank)
+
+    def rows(self, t):
+        """A DTensor -> this rank's rows with every column, as a plain
+        tensor; the rank reads only part of them (its heads, or its
+        channels), so its gradient is a partial sum over the model
+        axis."""
+        from torch.distributed.tensor import Partial
+
+        return t.redistribute(self.mesh, self.batch).to_local(
+            grad_placements=[Partial() if i == self.axis else p
+                             for i, p in enumerate(self.batch)])
+
+    def param(self, w, lanes: slice):
+        """A replicated parameter -> its ``lanes`` of the last dimension
+        (its gradient: a partial sum over every mesh axis)."""
+        from torch.distributed.tensor import Partial
+
+        return w.to_local(grad_placements=[Partial()] * self.mesh.ndim)[
+            ..., lanes]
+
+    def shards(self, t, shape, dim: int):
+        """This rank's slice of dimension ``dim`` -> the DTensor of
+        ``shape`` sharded on it over the model axis."""
+        from torch.distributed.tensor import DTensor
+
+        stride = [1] * len(shape)
+        for i in range(len(shape) - 2, -1, -1):
+            stride[i] = stride[i + 1] * shape[i + 1]
+        return DTensor.from_local(t, self.mesh, self.cols(dim),
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=tuple(stride))
+
+    def product(self, x, w, placements):
+        """``x @ w`` of a weight sharded on its input (a partial sum over
+        the model axis), reduced into ``placements`` and kept for the
+        backward in that layout: the remat policy saves a copy of the
+        reduced product and recomputes the product itself, where it
+        would otherwise save the whole partial sum."""
+        with remat_mark("recompute"):
+            t = x @ w
+        t = t.redistribute(self.mesh, placements)
+        with remat_mark("save"):
+            return t.clone()
+
+
+def _chunk(n: int, m: int, rank: int) -> slice:
+    """Rank ``rank``'s slice of ``n`` lanes split over ``m`` ranks as
+    ``torch.chunk`` (and DTensor's ``Shard``) splits them."""
+    size = -(-n // m)
+    lo = min(rank * size, n)
+    return slice(lo, min(lo + size, n))
+
+
+def ssd_heads(u, out_proj, in_proj, nheads: int):
+    """-> this rank's ``SSDHeads`` where the Mamba2 block runs as the
+    reference partitions it on a mesh, else None (no mesh, or the
+    batch-only path).
+
+    The rule follows the reference's compiled HLO (``tests/
+    ref_dryrun_auto.py`` ``ssd_shapes``): where the ``model`` axis (size
+    m > 1) shards ``out_proj``'s input (d_inner), the partitioner splits
+    the SSD heads over it, padded to a multiple of m (mamba2-130m's 24
+    heads on 16: 2 a device, the count ``torch.chunk`` gives; hymba-1.5b's
+    50: 4), and holds in_proj's product, the conv and the gated norm
+    sharded on their columns; with a replicated ``out_proj`` it keeps
+    every head on every device, even where ``in_proj`` is sharded.  The
+    port takes this path where ``in_proj`` is sharded on its input too
+    (every config that shards ``out_proj``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not (isinstance(u, DTensor) and isinstance(out_proj, DTensor)
+            and isinstance(in_proj, DTensor)):
+        return None
+    from repro_torch.dist.sharding import data_axes
+
+    mesh = u.device_mesh
+    names = mesh.mesh_dim_names or ()
+    if "model" not in names:
+        return None
+    axis = names.index("model")
+    m = mesh.size(axis)
+    if (m == 1 or out_proj.placements[axis] != Shard(0)
+            or in_proj.placements[axis] != Shard(0)):
+        return None
+    rank = mesh.get_local_rank(axis)
+    batch = tuple(p if p == Shard(0) and names[i] in data_axes(mesh)
+                  else Replicate() for i, p in enumerate(u.placements))
+    return SSDHeads(mesh, axis, batch, rank, m, _chunk(nheads, m, rank))
+
+
+def _ssd_core(xbc, dt, a_log, dt_bias, d_skip, dims: SSMDims,
+              heads: slice, chunk: int, ssm0):
+    """The selective state update of ``heads`` (all, or one rank's on a
+    mesh): ``xbc`` [B, S, C] after the conv, ``dt`` [B, S, h]
+    before its softplus, ``a_log`` / ``dt_bias`` / ``d_skip`` [h], ``ssm0``
+    [B, h, hp, N] or None -> (y [B, S, h, hp] float32 with the D skip,
+    the final state [B, h, hp, N] float32)."""
+    b, s = xbc.shape[:2]
+    di, n, hp = dims.d_inner, dims.state, dims.head_dim
+    nh = heads.stop - heads.start
     f32 = torch.float32
-    z, xbc, dt = _split_zxbcdt(p, u, dims)
-    xbc, conv_state = _causal_conv(
-        xbc, p["conv_w"], None if init_state is None else init_state[1])
-    x, B_, C_ = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
-    dt = _softplus(dt.float() + p["dt_bias"])                    # [B,S,nh]
-    a = -torch.exp(p["A_log"].float())
+    x, B_, C_ = (xbc[..., heads.start * hp:heads.stop * hp],
+                 xbc[..., di:di + n],
+                 xbc[..., di + n:])
+    dt = _softplus(dt.float() + dt_bias)                         # [B,S,nh]
+    a = -torch.exp(a_log.float())
     dA = dt * a
     xh = x.reshape(b, s, nh, hp).float()
     xdt = xh * dt[..., None]
@@ -667,7 +887,7 @@ def ssd_scan(p: dict, u, dims: SSMDims, chunk: int = 128, init_state=None):
     lt = torch.cumsum(dA_c, dim=2)                               # [B,nc,Q,nh]
     diff = lt[:, :, :, None, :] - lt[:, :, None, :, :]        # [B,nc,Q,Q,nh]
     tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
-                                device=u.device))[None, None, :, :, None]
+                                device=xbc.device))[None, None, :, :, None]
     # masked before exp: the upper triangle's large positive diffs would
     # overflow
     M = torch.exp(torch.where(tri, diff, torch.full_like(diff, NEG_INF)))
@@ -678,8 +898,8 @@ def ssd_scan(p: dict, u, dims: SSMDims, chunk: int = 128, init_state=None):
     chunk_states = torch.einsum("bcqhp,bcqn->bchpn",
                                 decay_end[..., None] * x_c, B_c)
     chunk_decay = torch.exp(lt[:, :, -1, :])                     # [B,nc,nh]
-    state = (torch.zeros(b, nh, hp, n, dtype=f32, device=u.device)
-             if init_state is None else init_state[0].float())
+    state = (torch.zeros(b, nh, hp, n, dtype=f32, device=xbc.device)
+             if ssm0 is None else ssm0.float())
     prev = []
     for c in range(nc):
         prev.append(state)
@@ -689,9 +909,72 @@ def ssd_scan(p: dict, u, dims: SSMDims, chunk: int = 128, init_state=None):
         * torch.exp(lt)[..., None]
 
     y = (y_intra + y_inter).reshape(b, s, nh, hp)
-    y = (y + p["D"].float()[None, None, :, None] * xh).reshape(b, s, di)
-    y = rms_norm(y * silu(z.float()), p["norm"])
+    return y + d_skip.float()[None, None, :, None] * xh, state
+
+
+def ssd_scan(p: dict, u, dims: SSMDims, chunk: int = 128, init_state=None):
+    """Chunked SSD forward (training / prefill) of the Mamba2 block:
+    in_proj -> causal conv -> selective state update, quadratic within a
+    chunk and recurrent across chunks -> gated RMSNorm -> out_proj.
+
+    ``u`` [B, S, d_model] with S a multiple of ``min(chunk, S)``;
+    ``init_state`` (ssm [B, nh, hp, N], conv [B, k-1, C]) or None.  On a
+    mesh whose model axis shards ``out_proj``'s input the block runs as
+    ``_ssd_scan_on_heads``, elsewhere batch-only.
+    -> (y [B, S, d_model], (ssm state float32, conv state))."""
+    b, s, _ = u.shape
+    nh = dims.nheads
+    sh = ssd_heads(u, p["out_proj"], p["in_proj"], nh)
+    if sh is not None:
+        return _ssd_scan_on_heads(sh, p, u, dims, chunk, init_state)
+    z, xbc, dt = _split_zxbcdt(p, u, dims)
+    xbc, conv_state = _causal_conv(
+        xbc, p["conv_w"], None if init_state is None else init_state[1])
+    y, state = _ssd_core(xbc, dt, p["A_log"], p["dt_bias"], p["D"], dims,
+                         slice(0, nh), chunk,
+                         None if init_state is None else init_state[0])
+    y = rms_norm(y.reshape(b, s, dims.d_inner) * silu(z.float()), p["norm"])
     return batch_only(y.to(u.dtype)) @ p["out_proj"], (state, conv_state)
+
+
+def _ssd_scan_on_heads(sh: SSDHeads, p, u, dims: SSMDims, chunk: int,
+                       init_state):
+    """``ssd_scan`` partitioned as the reference's HLO partitions it:
+    in_proj's z and xbc columns reduce-scattered over the model axis (the
+    remat keeps them so), the depthwise conv on the rank's channels, the
+    SSD core on its heads (every channel of its rows gathered; the heads'
+    outputs gathered back), and the gated norm on its d_inner columns,
+    which feed ``out_proj``'s rows: its product is a partial sum, reduced
+    by the caller.  The HLO holds the quadratic [B, nc, Q, Q, h]
+    temporaries on a device's heads, as here, but its inter-chunk states
+    with every head (mamba2-130m), or split on N at narrow widths: the
+    port keeps a rank's heads, fewer bytes for the same values."""
+    b, s, _ = u.shape
+    di, n, nh, hp = dims.d_inner, dims.state, dims.nheads, dims.head_dim
+    c = di + 2 * n
+    w = p["in_proj"]
+    z = sh.product(u, w[:, :di], sh.cols())
+    xbc = sh.product(u, w[:, di:di + c], sh.cols())
+    dt = sh.product(u, w[:, di + c:], sh.batch)
+    lanes = sh.chunk(c)
+    conv0 = None if init_state is None else sh.rows(init_state[1])[..., lanes]
+    out, conv_state = _causal_conv(xbc.to_local(),
+                                   sh.param(p["conv_w"], lanes), conv0)
+    k = p["conv_w"].shape[0]
+    xbc = sh.shards(out, (b, s, c), 2)
+    conv_state = sh.shards(conv_state, (b, k - 1, c), 2)
+    heads = sh.heads
+    ssm0 = None if init_state is None else sh.rows(init_state[0])[:, heads]
+    y, state = _ssd_core(
+        sh.rows(xbc), sh.rows(dt)[..., heads],
+        sh.param(p["A_log"], heads), sh.param(p["dt_bias"], heads),
+        sh.param(p["D"], heads), dims, heads, chunk, ssm0)
+    # the heads' outputs gathered, then split on d_inner's columns as z is
+    y = sh.shards(y, (b, s, nh, hp), 2).redistribute(sh.mesh, sh.batch)
+    y = y.reshape(b, s, di).redistribute(sh.mesh, sh.cols())
+    y = rms_norm(y * silu(z.float()), p["norm"])
+    return (y.to(u.dtype) @ p["out_proj"],
+            (sh.shards(state, (b, nh, hp, n), 1), conv_state))
 
 
 def ssd_step(p: dict, u, state, dims: SSMDims):

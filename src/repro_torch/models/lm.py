@@ -478,8 +478,14 @@ def remat_policy(unread):
     selective-checkpoint policy: save the result of a product with no
     batch dimension, recompute every other op.  A product whose weight is
     in ``unread`` (``Block.unread_weights``) is recomputed too: its output
-    is read by no backward, so JAX keeps no residual of it either."""
+    is read by no backward, so JAX keeps no residual of it either.  An op
+    run under ``layers.remat_mark`` is saved or recomputed as the mark
+    says (a product kept after its reduce, ``layers.SSDHeads.product``)."""
     def policy(ctx, op, *args, **kwargs):
+        mark = L.REMAT_MARK[0]
+        if mark is not None:
+            return (CheckpointPolicy.MUST_SAVE if mark == "save"
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
         if op in NO_BATCH_PRODUCTS and not any(
                 a is w for a in args for w in unread):
             return CheckpointPolicy.MUST_SAVE

@@ -115,6 +115,9 @@ def _nbytes(t: torch.Tensor) -> int:
 #: arguments an op mutates without reading them (a schema marks an
 #: argument written, not whether it is also read): by the op's name
 WRITE_ONLY = {"repro_torch::adamw_step_": ("params",)}
+#: ops that read only their input's shape and dtype (``StepCounter.read``)
+SHAPE_ONLY = {"zeros_like", "ones_like", "empty_like", "full_like",
+              "new_zeros", "new_ones", "new_empty", "new_full"}
 
 
 def _mutated(func, args, kwargs) -> tuple[list, list]:
@@ -159,6 +162,8 @@ class StepCounter(TorchDispatchMode):
         self.trace_bytes = trace_bytes
         self.peak_storages: list = []
         self._made: dict = {}
+        #: ids of the storages some op read (not those it only wrote)
+        self.read: set = set()
 
     def __enter__(self):
         from torch.distributed.tensor._sharding_prop import ShardingPropagator
@@ -234,12 +239,20 @@ class StepCounter(TorchDispatchMode):
         ns = getattr(func, "namespace", "")
         name = func._overloadpacket.__name__
         if ns == "_c10d_functional":
+            self.read.update(id(t.untyped_storage()) for t in ins)
             if name != "wait_tensor":
                 kind = COLLECTIVE_KINDS.get(name, name)
                 self.collectives[kind] = (self.collectives.get(kind, 0)
                                           + sum(map(_nbytes, outs)))
             return out
-        if ns == "prim" or func.is_view:
+        if ns == "prim":
+            return out
+        if func.is_view:
+            # a view reads nothing, but ``contiguous`` (a view by its
+            # schema) copies a strided input into a storage of its own
+            held = {id(t.untyped_storage()) for t in ins}
+            if any(id(o.untyped_storage()) not in held for o in outs):
+                self.read.update(held)
             return out
         self.ops += 1
         packet = func._overloadpacket
@@ -252,6 +265,8 @@ class StepCounter(TorchDispatchMode):
             written, only = _mutated(func, args, kwargs)
             only = set(map(id, only))
             ins = [t for t in ins if id(t) not in only]
+        if name not in SHAPE_ONLY:
+            self.read.update(id(t.untyped_storage()) for t in ins)
         self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, written))
         for o in outs:
             self._track(o, name)

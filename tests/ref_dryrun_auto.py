@@ -10,10 +10,12 @@ with ``AxisType.Auto`` axes and compiles each cell's production artifact
 (``lower_cell(cfg, shape, mesh, unroll=<decode>)``, as ``run_cell`` does
 for its memory record).  Nothing of the reference is edited.
 
-Per cell it records the reference's ``memory`` fields and ``scores``: the
+Per cell it records the reference's ``memory`` fields, ``scores``: the
 largest float32 rank-5 shapes of the compiled module whose last
 dimension is the key length (``[B, KVH, G, S_q, T]`` per device), which
-say whether the partitioner split the heads.
+say whether the partitioner split the heads, and ``ssd`` (``ssd_shapes``):
+the SSD's per-device temporaries, which say how many SSD heads a device
+holds.
 
 Usage:
     PYTHONPATH=src python tests/ref_dryrun_auto.py [--arch A] [--shape S]
@@ -54,6 +56,7 @@ AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 PRODUCTION = {False: (16, 16), True: (2, 16, 16)}
 MEMORY = ("argument_bytes", "temp_bytes", "output_bytes")
 _F32 = re.compile(r"f32\[(\d+),(\d+),(\d+),(\d+),(\d+)\]")
+_F32_4 = re.compile(r"f32\[(\d+),(\d+),(\d+),(\d+)\]")
 
 
 def auto_mesh(shape):
@@ -84,14 +87,49 @@ def score_shapes(hlo: str, cfg, shape: ShapeConfig, top: int = 3) -> list:
     return [list(d) for d in sorted(seen, key=math.prod, reverse=True)[:top]]
 
 
+def ssd_shapes(hlo: str, cfg, shape: ShapeConfig, top: int = 4) -> dict:
+    """The SSD's per-device float32 tensors of ``hlo`` (a config with an
+    SSM, a train or prefill cell; else empty): ``quadratic``, the largest
+    rank-5 shapes [B, nc, Q, Q, h] or [B, nc, h, Q, Q] (Q the chunk, nc
+    the chunks, h at most twice the heads: a head count, padded or not),
+    and ``heads``, the largest [B, S, h, hp] shapes.  The h of the
+    quadratic ones is how many SSD heads a device holds."""
+    if cfg.ssm_state <= 0 or shape.kind == "decode":
+        return {}
+    hp = cfg.ssm_head_dim
+    nh = cfg.ssm_expand * cfg.d_model // hp
+    q = min(128, shape.seq_len)
+    nc = shape.seq_len // q
+    quad, heads = set(), set()
+    for m in _F32.finditer(hlo):
+        dims = tuple(int(d) for d in m.groups())
+        h = dims[4] if dims[2] == dims[3] == q else (
+            dims[2] if dims[3] == dims[4] == q else None)
+        if dims[1] == nc and h is not None and h <= 2 * nh:
+            quad.add(dims)
+    for m in _F32_4.finditer(hlo):
+        dims = tuple(int(d) for d in m.groups())
+        if dims[1] == shape.seq_len and dims[3] == hp and dims[2] <= 2 * nh:
+            heads.add(dims)
+
+    def largest(found):
+        return [list(d) for d in sorted(found, key=lambda d: (math.prod(d),
+                                                              d),
+                                        reverse=True)[:top]]
+
+    return {"quadratic": largest(quad), "heads": largest(heads)}
+
+
 def ref_cell(cfg, shape: ShapeConfig, mesh_shape) -> dict:
     """Compile one cell's production artifact on an ``Auto`` mesh ->
-    {"memory": the reference's fields, "scores": ..., "compile_s"}."""
+    {"memory": the reference's fields, "scores": ..., "ssd": ...,
+    "compile_s"}."""
     t0 = time.time()
     mesh = auto_mesh(mesh_shape)
     compiled = ref_dryrun.lower_cell(
         cfg, shape, mesh, unroll=shape.kind == "decode").compile()
     mem = compiled.memory_analysis()
+    hlo = compiled.as_text()
     return {
         "mesh": "x".join(map(str, mesh_shape)),
         "memory": {
@@ -100,7 +138,8 @@ def ref_cell(cfg, shape: ShapeConfig, mesh_shape) -> dict:
             "temp_bytes": mem.temp_size_in_bytes,
             "generated_code_bytes": mem.generated_code_size_in_bytes,
         },
-        "scores": score_shapes(compiled.as_text(), cfg, shape),
+        "scores": score_shapes(hlo, cfg, shape),
+        "ssd": ssd_shapes(hlo, cfg, shape),
         "compile_s": round(time.time() - t0, 1),
     }
 

@@ -59,12 +59,19 @@ def _local(shape, placements, mesh) -> int:
 
 
 def expected_argument_bytes(cfg, shape, mesh) -> int:
-    """The local shards' bytes of the cell's arguments, from the
-    placements alone."""
+    """The local shards' bytes of the cell's arguments that the step
+    reads, from the placements alone: a decode step reads no encoder
+    weight and no cross-attention K / V projection (the cross K / V are
+    in its cache), and XLA's compile of the reference drops such
+    arguments from its count."""
     model = configs.param_specs(cfg)
     pl = shd.param_shardings(cfg, model, mesh)
     total = 0
     for n, p in model.named_parameters():
+        if shape.kind == "decode" and (
+                n.startswith(("enc_blocks.", "enc_norm"))
+                or n.endswith(("cross.wk", "cross.wv"))):
+            continue
         total += _local(p.shape, pl[n], mesh) * p.element_size()
     if shape.kind == "train":
         st = adamw.state_shardings(pl, mesh, model)

@@ -22,6 +22,11 @@ computes without a mesh:
   [rows, S, padded vocab] tensor; attention on head shards equals the
   plain call within 2e-5 (float32), and a layer whose heads the axis does
   not divide takes the batch-only path;
+* on a 1x4 mesh over the same ranks, attention and decode attention in
+  gcd(H, 4) head groups (6 / 6 and 6 / 2 heads: 3 a rank; 6 / 3 keeps
+  all 6, as the reference's HLO does) and a Mamba2 block on its SSD heads
+  (6 heads: 2, 2, 2 and none) equal the plain call within 2e-5, output
+  and every gradient;
 * a checkpoint saved by the one-device trainer restores onto the 2x2
   mesh with equal values (the counterpart of
   ``tests/test_ckpt_data.py::test_elastic_restore_to_different_mesh``).
@@ -147,7 +152,14 @@ def _worker(rank: int, tmp: str):
     mesh2 = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data",
                                                             "model"))
     out["loss"] = _loss_checks(mesh2)
-    out["attention"] = _attention_checks(mesh2)
+    out["attention"] = _attention_checks(mesh2, SPLIT_CASES)
+    # a (1, 4) mesh over the same ranks: heads the model axis does not
+    # divide but shares a factor with, in gcd(H, 4) groups
+    mesh4 = init_device_mesh("cpu", (1, WORLD),
+                             mesh_dim_names=("data", "model"))
+    out["attention_groups"] = _attention_checks(mesh4, GROUP_CASES)
+    out["decode_groups"] = _decode_checks(mesh4, GROUP_CASES)
+    out["ssd_heads"] = _ssd_checks(mesh4)
 
     # the trainer on a 2x2 mesh, its blocks rematerialised (counted)
     _use_widened()
@@ -248,59 +260,182 @@ def _loss_checks(mesh) -> dict:
     }
 
 
-def _attention_checks(mesh) -> dict:
-    """``layers.attention`` on float32 DTensors of the 2x2 mesh (``wq`` and
-    ``wv`` split on their heads, ``wk`` on its input as a large leaf of a
-    KV-narrow layer is, ``wo`` on its heads) against the same call on
-    plain tensors: one layer whose 4 heads the model axis divides (2 KV
-    heads: each rank its own) and one of 3 heads (the batch-only path).
+#: attention layers on the 2x2 mesh: name -> (heads, KV heads, heads a
+#: rank's scores hold)
+SPLIT_CASES = {"divides": (4, 2, 2), "does_not": (3, 1, 3)}
+#: on the (1, 4) mesh: 6 / 6 heads in 2 groups of 3 (KV heads split as the
+#: queries), 6 / 2 with one KV head a group, and 6 / 3 heads, whose groups
+#: would read parts of two KV heads: the reference's HLO keeps every head
+#: on every device there, and so does the port
+GROUP_CASES = {"gcd_kv_split": (6, 6, 3), "gcd_one_kv": (6, 2, 3),
+               "gcd_kv_straddles": (6, 3, 6)}
+
+
+def _rel_errs(got, want, dp, plain, dx, xp) -> list:
+    """[output error, then each weight's and x's gradient error], each
+    relative to the largest magnitude of its reference (a weight the call
+    does not read, decode's ``wk`` and ``wv``, has no gradient on either
+    side)."""
+    errs = [float((got.full_tensor() - want).abs().max()
+                  / want.abs().max())]
+    for k in plain:
+        gw = plain[k].grad
+        if gw is None:
+            assert dp[k].grad is None, k
+            continue
+        errs.append(float((dp[k].grad.full_tensor() - gw).abs().max()
+                          / gw.abs().max()))
+    gx = xp.grad
+    errs.append(float((dx.grad.full_tensor() - gx).abs().max()
+                      / gx.abs().max()))
+    return errs
+
+
+def _attention_weights(h, kvh, d, hd, seed):
+    g = torch.Generator().manual_seed(seed)
+    return g, {"wq": torch.randn(d, h * hd, generator=g) * 0.3,
+               "wk": torch.randn(d, kvh * hd, generator=g) * 0.3,
+               "wv": torch.randn(d, kvh * hd, generator=g) * 0.3,
+               "wo": torch.randn(h * hd, d, generator=g) * 0.3}
+
+
+def _on_mesh(p, x, mesh):
+    """Plain weights and input -> (leaf copies, DTensor weights and
+    input): ``wq`` and ``wv`` split on their heads, ``wk`` on its input
+    as a large leaf of a KV-narrow layer is, ``wo`` on its heads, x on
+    its batch."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    pl = {"wq": Shard(1), "wk": Shard(0), "wv": Shard(1), "wo": Shard(0)}
+    plain = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    dp = {k: distribute_tensor(v, mesh, [Replicate(), pl[k]])
+          .requires_grad_(True) for k, v in p.items()}
+    dx = distribute_tensor(x, mesh, [Shard(0), Replicate()])
+    dx.requires_grad_(True)
+    return plain, dp, dx
+
+
+def _attention_checks(mesh, cases) -> dict:
+    """``layers.attention`` on float32 DTensors of ``mesh`` (``_on_mesh``)
+    against the same call on plain tensors, for each of ``cases``.
     -> {name: (head shards, output error, largest gradient error, the
     local score shapes)}."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models import layers as L
+
+    res = {}
+    for name, (h, kvh, _) in cases.items():
+        d, hd = 32, 16
+        g, p = _attention_weights(h, kvh, d, hd, h * 10 + kvh)
+        x = torch.randn(4, 24, d, generator=g)
+        pos = torch.arange(24)[None]
+        kw = dict(num_heads=h, num_kv_heads=kvh, head_dim=hd, softcap=20.0,
+                  window=0, q_chunk=8)
+        plain, dp, dx = _on_mesh(p, x, mesh)
+        xp = x.clone().requires_grad_(True)
+        want, _ = L.attention(plain, xp, pos, **kw)
+        want.square().sum().backward()
+        rec = _Shapes()
+        with implicit_replication(), rec:
+            got, _ = L.attention(dp, dx, pos, **kw)
+            got.square().sum().backward()
+        errs = _rel_errs(got, want, dp, plain, dx, xp)
+        res[name] = [L.head_shards(dx, dp["wq"], h, kvh) is not None,
+                     errs[0], max(errs[1:]),
+                     sorted({s for s in rec.shapes
+                             if len(s) == 5 and s[-2:] == (8, 24)})]
+    return res
+
+
+def _decode_checks(mesh, cases) -> dict:
+    """``layers.decode_attention`` (one token against a 20-position cache
+    and its own K / V) on ``mesh`` against the plain call, as
+    ``_attention_checks``."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.models import layers as L
 
     res = {}
-    for name, (h, kvh) in {"divides": (4, 2), "does_not": (3, 1)}.items():
-        d, hd = 32, 16
-        g = torch.Generator().manual_seed(h)
-        p = {"wq": torch.randn(d, h * hd, generator=g) * 0.3,
-             "wk": torch.randn(d, kvh * hd, generator=g) * 0.3,
-             "wv": torch.randn(d, kvh * hd, generator=g) * 0.3,
-             "wo": torch.randn(h * hd, d, generator=g) * 0.3}
-        x = torch.randn(4, 24, d, generator=g)
-        pos = torch.arange(24)[None]
+    for name, (h, kvh, _) in cases.items():
+        d, hd, t = 32, 16, 20
+        g, p = _attention_weights(h, kvh, d, hd, h * 10 + kvh + 5)
+        x = torch.randn(4, 1, d, generator=g)
+        pos = torch.tensor([3, 9, 14, 19])
+        kc, vc, kn, vn = (torch.randn(4, n, kvh, hd, generator=g)
+                          for n in (t, t, 1, 1))
         kw = dict(num_heads=h, num_kv_heads=kvh, head_dim=hd, softcap=20.0,
-                  window=0, q_chunk=8)
-        plain = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+                  window=0)
+        plain, dp, dx = _on_mesh(p, x, mesh)
         xp = x.clone().requires_grad_(True)
-        want, _ = L.attention(plain, xp, pos, **kw)
+        want = L.decode_attention(plain, xp, pos, kc, vc, kv_new=(kn, vn),
+                                  **kw)
         want.square().sum().backward()
-        pl = {"wq": Shard(1), "wk": Shard(0), "wv": Shard(1),
-              "wo": Shard(0)}
-        dp = {k: distribute_tensor(v, mesh, [Replicate(), pl[k]])
-              .requires_grad_(True) for k, v in p.items()}
-        dx = distribute_tensor(x, mesh, [Shard(0), Replicate()])
-        dx.requires_grad_(True)
+        dc = [distribute_tensor(c, mesh, [Shard(0), Replicate()])
+              for c in (kc, vc, kn, vn)]
+        dpos = distribute_tensor(pos, mesh, [Shard(0), Replicate()])
         rec = _Shapes()
         with implicit_replication(), rec:
-            got, _ = L.attention(dp, dx, pos, **kw)
+            got = L.decode_attention(dp, dx, dpos, dc[0], dc[1],
+                                     kv_new=(dc[2], dc[3]), **kw)
             got.square().sum().backward()
-        scale = want.abs().max()
-        errs = [float((got.full_tensor() - want).abs().max() / scale)]
-        for k in p:
-            gw = plain[k].grad
-            errs.append(float((dp[k].grad.full_tensor() - gw).abs().max()
-                              / gw.abs().max()))
-        gx = xp.grad
-        errs.append(float((dx.grad.full_tensor() - gx).abs().max()
-                          / gx.abs().max()))
+        errs = _rel_errs(got, want, dp, plain, dx, xp)
         res[name] = [L.head_shards(dx, dp["wq"], h, kvh) is not None,
                      errs[0], max(errs[1:]),
                      sorted({s for s in rec.shapes
-                             if len(s) == 5 and s[-2:] == (8, 24)})]
+                             if len(s) == 5 and s[-2:] == (1, t)})]
     return res
+
+
+#: the SSD layer of ``_ssd_checks``: 6 heads of 16 lanes (d_inner 96),
+#: which a 4-way model axis splits 2, 2, 2 and none
+SSD_DIMS = dict(d_model=48, d_inner=96, nheads=6, head_dim=16, state=8,
+                conv=4)
+
+
+def _ssd_checks(mesh) -> dict:
+    """``layers.ssd_scan`` on float32 DTensors of ``mesh`` (``in_proj``
+    and ``out_proj`` split on d_model and d_inner, as the sharding rule
+    splits mamba2's, the rest replicated) against the plain call.  ->
+    [SSD heads of each rank, output error, largest gradient error, the
+    local quadratic shapes]."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models import layers as L
+
+    dims = L.SSMDims(**SSD_DIMS)
+    d, di, n, nh = dims.d_model, dims.d_inner, dims.state, dims.nheads
+    g = torch.Generator().manual_seed(11)
+    p = {"in_proj": torch.randn(d, 2 * di + 2 * n + nh, generator=g) * 0.2,
+         "conv_w": torch.randn(dims.conv, di + 2 * n, generator=g) * 0.5,
+         "dt_bias": torch.randn(nh, generator=g) * 0.5,
+         "A_log": torch.randn(nh, generator=g) * 0.5,
+         "D": torch.randn(nh, generator=g),
+         "norm": torch.randn(di, generator=g) * 0.1,
+         "out_proj": torch.randn(di, d, generator=g) * 0.2}
+    x = torch.randn(4, 32, d, generator=g)
+    plain = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    xp = x.clone().requires_grad_(True)
+    want, (st, _) = L.ssd_scan(plain, xp, dims, chunk=8)
+    (want.square().sum() + st.sum()).backward()
+    pl = {"in_proj": Shard(0), "out_proj": Shard(0)}
+    dp = {k: distribute_tensor(v, mesh, [Replicate(),
+                                         pl.get(k, Replicate())])
+          .requires_grad_(True) for k, v in p.items()}
+    dx = distribute_tensor(x, mesh, [Shard(0), Replicate()])
+    dx.requires_grad_(True)
+    rec = _Shapes()
+    with implicit_replication(), rec:
+        got, (dst, _) = L.ssd_scan(dp, dx, dims, chunk=8)
+        (got.square().sum() + dst.sum()).backward()
+    errs = _rel_errs(got, want, dp, plain, dx, xp)
+    plan = L.ssd_heads(dx, dp["out_proj"], dp["in_proj"], nh)
+    return [None if plan is None else len(range(nh)[plan.heads]), errs[0],
+            max(errs[1:]),
+            sorted({s for s in rec.shapes
+                    if len(s) == 5 and s[2:4] == (8, 8)})]
 
 
 def _reference_runs():
@@ -461,6 +596,37 @@ def test_attention_on_head_shards_equals_plain(runs, name):
     assert sharded == (name == "divides")
     heads = [s[1] * s[2] for s in scores]
     assert heads and all(h == (2 if sharded else 3) for h in heads)
+
+
+@pytest.mark.parametrize("kind", ["attention_groups", "decode_groups"])
+@pytest.mark.parametrize("name", list(GROUP_CASES))
+def test_attention_in_head_groups_equals_plain(runs, kind, name):
+    """Attention and decode attention on a (1, 4) mesh whose model axis
+    does not divide the 6 heads equal the plain call within 2e-5
+    (float32), output and every gradient (wq, wk, wv, wo, x; decode reads
+    no wk or wv); each rank's
+    scores hold H / gcd(H, 4) = 3 heads where the reference's HLO splits
+    them so, else all 6."""
+    _, _, got, _, _ = runs
+    sharded, out_err, grad_err, scores = got[kind][name]
+    assert out_err <= 2e-5 and grad_err <= 2e-5, (out_err, grad_err)
+    want = GROUP_CASES[name][2]
+    assert sharded == (want < GROUP_CASES[name][0])
+    heads = [s[1] * s[2] for s in scores]
+    assert heads and all(h == want for h in heads), scores
+
+
+def test_ssd_on_head_shards_equals_plain(runs):
+    """The Mamba2 block on the (1, 4) mesh, its 6 SSD heads split 2, 2, 2
+    and none over the model axis, equals the plain call within 2e-5
+    (float32), output, final state and every gradient; rank 0's
+    quadratic [B, nc, Q, Q, h] temporaries hold its 2 heads, none all 6
+    (the head-free product C.B and its gradient have h = 1)."""
+    _, _, got, _, _ = runs
+    heads, out_err, grad_err, quad = got["ssd_heads"]
+    assert heads == 2
+    assert out_err <= 2e-5 and grad_err <= 2e-5, (out_err, grad_err)
+    assert quad and max(s[4] for s in quad) == 2, quad
 
 
 def test_unsharded_checkpoint_restores_onto_mesh(runs):
