@@ -32,12 +32,14 @@ does (there is no compilation step to count).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import functools
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import admission, hashing, hierarchy, kway
 from repro_torch.kernels import _build
 from repro_torch.kernels.kway_probe import MAX_WAYS
@@ -357,6 +359,23 @@ def _lanes(state: kway.KWayState, sets: int, ways: int):
     return lanes, exp
 
 
+def chain_lanes(bk: Buckets) -> torch.Tensor:
+    """The lanes of the largest owner bucket (0-d, on ``bk``'s device):
+    the longest chain one warp of kernel 3 walks."""
+    return (bk.start[1:] - bk.start[:-1]).max()
+
+
+def _traced_launch(bk, stream):
+    """While ``obs`` tracing is on and the form buckets: the
+    ``replay.kernel`` span, timed by an event pair on ``stream`` around the
+    launch, and ``chain_lanes`` added to the ``replay.chain_lanes``
+    counter on the device.  Else a context that does nothing."""
+    if bk is None or not obs.enabled():
+        return contextlib.nullcontext()
+    obs.count("replay.chain_lanes", chain_lanes(bk))
+    return obs.span("replay.kernel", stream=stream)
+
+
 def replay_resident(cfg: kway.KWayConfig, state: kway.KWayState, qkeys,
                     enabled, ttls=None, tinylfu=None, sketch=None):
     """Replay ``qkeys`` int32 [T, B] (raw key bit patterns) with lane mask
@@ -419,17 +438,20 @@ def replay_resident(cfg: kway.KWayConfig, state: kway.KWayState, qkeys,
 
     shift = owner_shift(cfg.num_sets)
     cap = insert_cap(cfg, batch)
-    rc = _lib().replay_launch(
-        _ptr(lanes["keys"]), _ptr(lanes["fprint"]), _ptr(lanes["vals"]),
-        _ptr(lanes["meta_a"]), _ptr(lanes["meta_b"]), _ptr(exp), _ptr(clock),
-        _ptr(qk), _ptr(sets), _ptr(en), _ptr(tt), steps, batch, cfg.ways,
-        cfg.num_sets, int(cfg.policy), _FORMS.index(form),
-        *((None,) * 6 if bk is None else
-          (_ptr(bk.lane), _ptr(bk.key), _ptr(bk.set), _ptr(bk.start),
-           _ptr(bk.live), _ptr(bk.pos))), _ptr(work),
-        num_owners(cfg.num_sets), shift, cap, _ptr(hits), _ptr(evs),
-        *sk_ptrs, _ptr(door_win), _ptr(rec), width,
-        door_bits, sample, torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev)
+    with _traced_launch(bk, stream):
+        rc = _lib().replay_launch(
+            _ptr(lanes["keys"]), _ptr(lanes["fprint"]), _ptr(lanes["vals"]),
+            _ptr(lanes["meta_a"]), _ptr(lanes["meta_b"]), _ptr(exp),
+            _ptr(clock), _ptr(qk), _ptr(sets), _ptr(en), _ptr(tt), steps,
+            batch, cfg.ways, cfg.num_sets, int(cfg.policy),
+            _FORMS.index(form),
+            *((None,) * 6 if bk is None else
+              (_ptr(bk.lane), _ptr(bk.key), _ptr(bk.set), _ptr(bk.start),
+               _ptr(bk.live), _ptr(bk.pos))), _ptr(work),
+            num_owners(cfg.num_sets), shift, cap, _ptr(hits), _ptr(evs),
+            *sk_ptrs, _ptr(door_win), _ptr(rec), width,
+            door_bits, sample, stream.cuda_stream)
     _build.check(rc, "replay_resident")
     _TRACE_COUNTS[("launch", int(cfg.policy), cfg.num_sets, cfg.ways, steps,
                    batch, exp is not None, tinylfu is not None, form)] += 1

@@ -53,6 +53,7 @@ The prefill's first token is always the argmax.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections import Counter
 from typing import Optional
 
@@ -67,6 +68,7 @@ from repro_torch.core.hashing import key_tensor, prefix_block_hashes
 from repro_torch.core.kway import KWayConfig, KWayState
 from repro_torch.core.policies import Policy
 from repro_torch.core import prng
+from repro_torch import obs
 from repro_torch.kernels import kway_probe as kprobe
 from repro_torch.kernels import paged_attention as kpa
 from repro_torch.models import lm
@@ -347,11 +349,13 @@ def _prefill_tiles(cfg, ecfg, model, st, toks, length, admitted, pre_hits,
 
 
 def _decode_burst(cfg, ecfg, model, st, shared, active, pos, n_gen, max_new,
-                  last_tok, n_pages, owner, page_tbl, decode_steps):
+                  last_tok, n_pages, owner, page_tbl, decode_steps,
+                  mark=None):
     """Phase 4: ``decode_block`` steps, each a sequential page allocation
     over slots (an out-of-page retire frees its pages for later slots in
     the same step, as in the host loop), one batched paged decode, greedy
-    sampling and retirement.  -> (the slot fields and ``owner``,
+    sampling and retirement; ``mark("decode")`` after each step (tracing
+    only: ``Engine._mark``).  -> (the slot fields and ``owner``,
     ``page_tbl``, ``decode_steps`` after the burst, and per step the
     decoded mask, tokens, retirements and clash flags)."""
     dev = active.device
@@ -391,6 +395,8 @@ def _decode_burst(cfg, ecfg, model, st, shared, active, pos, n_gen, max_new,
             (owner >= 0) & fin[owner.clamp(0, n_slots - 1).long()], -1, owner)
         out.append((active, torch.where(active, nxt, 0), early | fin, clash))
         active = active & ~fin
+        if mark is not None:
+            mark("decode")
     return (active, pos, n_gen, last_tok, n_pages, owner, page_tbl,
             decode_steps, [torch.stack(c) for c in zip(*out)])
 
@@ -398,7 +404,7 @@ def _decode_burst(cfg, ecfg, model, st, shared, active, pos, n_gen, max_new,
 @torch.no_grad()
 def _tick(cfg: ModelConfig, ecfg: EngineConfig, backend, sketch_cfg,
           model: lm.LM, st: ServeState, batch: torch.Tensor,
-          admit: bool) -> torch.Tensor:
+          admit: bool, mark=None) -> torch.Tensor:
     """One serving tick on ``st``, in place, in the reference's four phases
     (admission, activation, prefill, decode burst) with its masks.
 
@@ -410,8 +416,10 @@ def _tick(cfg: ModelConfig, ecfg: EngineConfig, backend, sketch_cfg,
     ``.item()``, boolean indexing, ``nonzero`` or host array), so a CUDA
     graph can capture it; a skipped branch of the reference's ``lax.cond``
     is a ``torch.where`` that keeps the old value.  Ends by copying every
-    new field into ``st``.  -> the emitted int32 vector
-    (``_emitted_sizes``)."""
+    new field into ``st``.  ``mark`` (tracing only) is called with each
+    phase's name where it ends: ``"prefix"`` after phase 1, ``"prefill"``
+    after phases 2-3, ``"decode"`` after each decode step.  -> the emitted
+    int32 vector (``_emitted_sizes``)."""
     dev = st.active.device
     i32 = torch.int32
     n_slots, page = ecfg.max_batch, ecfg.page
@@ -440,6 +448,8 @@ def _tick(cfg: ModelConfig, ecfg: EngineConfig, backend, sketch_cfg,
         counters = counters + torch.stack([
             pre_hits.sum(), pre_lookups.sum(), ev_cnt.sum(),
             admitted.sum(), torch.zeros_like(ev_cnt.sum())]).to(i32)
+        if mark is not None:
+            mark("prefix")
         # ---- phase 2: lane activation (slot i <- its admitted lane) ----
         to_slot = (order[None, :] == torch.arange(n_slots, device=dev)[:, None]
                    ) & admitted[None, :]
@@ -471,11 +481,13 @@ def _tick(cfg: ModelConfig, ecfg: EngineConfig, backend, sketch_cfg,
                                  admitted, pre_hits, pre_lookups, tail,
                                  pages2, tail_page)
         last_tok = put(last_tok, pre_tok)
+        if mark is not None:
+            mark("prefill")
     # ---- phase 4: decode burst -----------------------------------------
     (active, pos, n_gen, last_tok, n_pages, owner, page_tbl, decode_steps,
      (dec_mask, dec_tok, retired, clash)) = _decode_burst(
         cfg, ecfg, model, st, shared, active, pos, n_gen, max_new, last_tok,
-        n_pages, owner, page_tbl, counters[4])
+        n_pages, owner, page_tbl, counters[4], mark)
     _copy_into(st, dataclasses.replace(
         st, owner=owner, active=active, rid=rid, pos=pos, n_gen=n_gen,
         max_new=max_new, last_tok=last_tok, n_pages=n_pages,
@@ -537,6 +549,9 @@ class Engine:
             raise ValueError(f"model parameters lie on {model.device}, the "
                              f"engine runs on {self.device}")
         self.cfg, self.model, self.ecfg = cfg, model, ecfg
+        #: ``obs`` tracing as it stood at construction: it decides whether
+        #: the tick's graphs hold timing events
+        self._trace = obs.enabled()
         self._events_start = events.cursor()
         self.sketch_cfg = (admission.for_capacity(self.kcfg.capacity)
                            if ecfg.tinylfu else None)
@@ -626,7 +641,14 @@ class Engine:
         warmed up once on this idle engine (a no-op on its state: nothing
         is waiting or running, so only the sink page is written) and
         captured as a CUDA graph, the two sharing one memory pool; on the
-        CPU the body runs eagerly at each tick."""
+        CPU the body runs eagerly at each tick.
+
+        With ``obs`` tracing on, each graph is captured with a timing event
+        where each of its phases ends (``_tick``'s ``mark``), and each tick
+        is bracketed by a start event and ``_done``, both timed, in two
+        alternating sets so the previous tick's end stays readable; on the
+        CPU the hook records the phases' names alone.  With tracing off the
+        graphs hold no event."""
         cfg, ecfg, dev = self.cfg, self.ecfg, self.device
         s = ecfg.max_batch
         i32 = torch.int32
@@ -657,7 +679,15 @@ class Engine:
         #: kernel launches each graph holds, by wrapper, counted by the
         #: wrappers at capture: every replay launches them all again
         self.graph_launches: dict = {}
+        #: the phase hook ``_body`` hands ``_tick`` (None: tracing off)
+        self._mark = None
+        #: (start, end) timing events of the ticks, two sets (tracing, card)
+        self._edges = None
         if dev.type != "cuda":
+            #: the phases the running tick marked (tracing, CPU)
+            self._labels = []
+            if self._trace:
+                self._mark = self._labels.append
             return
         # the graphs replay on the stream they were captured on: kernel 5
         # keys its tickets by the launching stream (kernels/paged_attention)
@@ -676,15 +706,33 @@ class Engine:
             torch.cuda.set_sync_debug_mode(mode)
         stream.synchronize()
         pool = torch.cuda.graph_pool_handle()
+        #: (phase name, timing event in the graph) of each kind (tracing)
+        self._phase_events = {kind: [] for kind in KINDS}
         for kind in KINDS:
             graph = torch.cuda.CUDAGraph()
             before = _launch_counts()
+            if self._trace:
+                self._mark = functools.partial(self._capture_mark, kind)
             with torch.cuda.graph(graph, pool=pool, stream=stream):
                 self._body(kind)
                 _CAPTURES[("serve_tick", cfg.name, ecfg, kind)] += 1
+            self._mark = None
             self._graphs[kind] = graph
             self.graph_launches[kind] = dict(_launch_counts() - before)
-        self._done = torch.cuda.Event()
+        if self._trace:
+            self._edges = [tuple(torch.cuda.Event(enable_timing=True)
+                                 for _ in range(2)) for _ in range(2)]
+            self._done = self._edges[0][1]
+        else:
+            self._done = torch.cuda.Event()
+
+    def _capture_mark(self, kind: str, phase: str) -> None:
+        """``_tick``'s hook while graph ``kind`` is captured: a timing
+        event recorded on the capture stream, which every replay records
+        again where ``phase`` ends."""
+        ev = torch.cuda.Event(enable_timing=True, external=True)
+        ev.record(self._stream)
+        self._phase_events[kind].append((phase, ev))
 
     def _body(self, kind: str):
         """One tick of ``kind`` on the static buffers: what a graph
@@ -693,7 +741,7 @@ class Engine:
         if admit:
             self._batch.copy_(self._batch_host, non_blocking=True)
         em = _tick(self.cfg, self.ecfg, self.backend, self.sketch_cfg,
-                   self.model, self._state, self._batch, admit)
+                   self.model, self._state, self._batch, admit, self._mark)
         self._emitted.copy_(em, non_blocking=True)
 
     def _fetch(self) -> dict:
@@ -708,14 +756,44 @@ class Engine:
             o += n
         return out
 
+    def _device_times(self, kind: str, n: int) -> dict:
+        """Tick ``n``'s device milliseconds, read after its fetch (tracing
+        on): ``phases``, [name, ms] of each marked phase, from the previous
+        mark (the tick's start for the first); ``tick_ms``, start to end;
+        ``gap_ms``, the previous tick's end to this one's start.  None
+        where not measured: on the CPU, and the first tick's gap."""
+        if self._edges is None:
+            phases = [[p, None] for p in self._labels]
+            self._labels.clear()
+            return {"phases": phases, "tick_ms": None, "gap_ms": None}
+        start, done = self._edges[n % 2]
+        marks = self._phase_events[kind]
+        before = [start] + [ev for _, ev in marks[:-1]]
+        return {"phases": [[p, a.elapsed_time(ev)]
+                           for a, (p, ev) in zip(before, marks)],
+                "tick_ms": start.elapsed_time(done),
+                "gap_ms": (self._edges[(n - 1) % 2][1].elapsed_time(start)
+                           if n else None)}
+
     def _step_tick(self):
         """One tick: stage the waiting lanes, run the admit graph if a
         request waits and a slot is free (else the decode graph), make the
-        one host sync, then drain admissions, tokens and retirements."""
+        one host sync, then drain admissions, tokens and retirements.  With
+        ``obs`` tracing on: a ``serve.step`` span (kind, tick index,
+        admitted request ids and ``_device_times``) around it all, a
+        ``serve.fetch`` span around the sync, and the admit ticks' prefill
+        tokens, padded and needed, counted."""
+        with obs.span("serve.step") as sp:
+            self._run_tick(sp)
+
+    def _run_tick(self, sp):
+        """``_step_tick``'s body, its readings set on span ``sp``."""
         ecfg = self.ecfg
         s, mp = ecfg.max_batch, self.max_prompt
         nwait = min(len(self.waiting), s)
         kind = "admit" if nwait and len(self.running) < s else "decode"
+        n = sum(self.ticks.values())
+        sp.set(kind=kind, tick=n)
         if kind == "admit":
             hb = self._batch_host.numpy()
             hb[:] = 0
@@ -725,19 +803,26 @@ class Engine:
         if self.device.type == "cuda":
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(self._stream):
+                if self._edges is not None:
+                    start, self._done = self._edges[n % 2]
+                    start.record()
                 self._graphs[kind].replay()
                 self._done.record()
         else:
             self._body(kind)
         self.ticks[kind] += 1
-        if ecfg.sync_timeout_s > 0:
-            # bounded retry/backoff, observable as degradation events, and
-            # a WatchdogTimeout instead of an unbounded hang
-            em = watch(self._fetch, timeout_s=ecfg.sync_timeout_s,
-                       retries=ecfg.sync_retries, backoff=ecfg.sync_backoff,
-                       component="engine.tick_sync")
-        else:
-            em = self._fetch()
+        with obs.span("serve.fetch"):
+            if ecfg.sync_timeout_s > 0:
+                # bounded retry/backoff, observable as degradation events,
+                # and a WatchdogTimeout instead of an unbounded hang
+                em = watch(self._fetch, timeout_s=ecfg.sync_timeout_s,
+                           retries=ecfg.sync_retries,
+                           backoff=ecfg.sync_backoff,
+                           component="engine.tick_sync")
+            else:
+                em = self._fetch()
+        if self._trace:
+            sp.set(**self._device_times(kind, n))
         if em["clash"][0]:
             raise AssertionError("decode_paged: two lanes write one page")
         # admitted lanes are a prefix of the waiting queue (in-order
@@ -751,6 +836,11 @@ class Engine:
             r.prefix_lookups = int(em["pre_lookups"][j])
             r.pos = len(r.prompt)
             self.running[r.rid] = r
+        if kind == "admit" and obs.enabled():
+            sp.set(rids=[r.rid for r in newly])
+            obs.count("serve.prefill_tokens_padded", s * mp)
+            obs.count("serve.prefill_tokens_needed", sum(
+                len(r.prompt) - r.prefix_hits * ecfg.page for r in newly))
         rid = em["rid"]
         for dm, dt, rt in zip(em["dec_mask"].reshape(-1, s),
                               em["dec_tok"].reshape(-1, s),
